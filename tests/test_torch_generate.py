@@ -1,0 +1,142 @@
+"""The port's McWilliams dataset generation against the JAX package.
+
+Shared inputs go through both ``make_batch_pipeline``s (warmup, chunked
+rollout, irfft2 and the antialiased bilinear subsample): fp64 records to
+rtol 1e-9 (the JAX suite's transform tolerance), fp32 records to 1e-5 of
+their largest magnitude (fp32 roundoff over a few steps). The CLI runs here
+with ``--no-cuda`` at 32² and writes the npz part/meta format that
+``tpu_cfd.data.datasets.load_trajectory_dict`` reads.
+"""
+
+import json
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_cfd import grids as jgrids
+from tpu_cfd.data import datasets as jdatasets, generate as jgen
+from tpu_cfd.solvers import equations as jeq
+from tpu_cfd_torch import grids as tgrids
+from tpu_cfd_torch.data import generate as tgen
+from tpu_cfd_torch.solvers import equations as teq
+
+torch.set_num_threads(2)
+
+N = 32
+DT = 1e-3
+DOMAIN = ((0, 2 * np.pi), (0, 2 * np.pi))
+
+
+def _fields(shape, dtype, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("n,ns", [(64, 16), (64, 32), (32, 8)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_subsample_matches_jax_image_resize(n, ns, dtype):
+    x = _fields((2, 3, n, n), dtype)
+    ref = np.asarray(jgen._subsample_field(jnp.asarray(x), ns))
+    ours = tgen._subsample_field(torch.from_numpy(x), ns).numpy()
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=tol * np.abs(ref).max())
+    assert tgen._subsample_field(torch.from_numpy(x), n).shape == x.shape
+
+
+def _spectrum(batch, dtype):
+    x = _fields((batch, N, N), np.float64, 1)
+    k = np.sqrt(np.fft.fftfreq(N)[:, None] ** 2 + np.fft.rfftfreq(N)[None] ** 2) * N
+    xh = np.fft.rfft2(x) * 20 * np.exp(-((k / 4) ** 2))
+    return xh.astype(np.complex128 if dtype == np.float64 else np.complex64)
+
+
+@pytest.mark.parametrize("impl,dtype,fields", [
+    ("fft", np.float64, ("vorticity", "stream", "vort_t", "residual")),
+    ("dft_galerkin", np.float32, ("vorticity",)),
+    ("dft_aligned", np.float32, ("vorticity", "vort_t")),
+])
+def test_make_batch_pipeline_matches_jax(impl, dtype, fields):
+    jg = jgrids.Grid((N, N), domain=DOMAIN)
+    tg = tgrids.Grid((N, N), domain=DOMAIN)
+    kw = dict(viscosity=1e-3, fft_impl=impl, mxu_precision="highest")
+    nj = jeq.NavierStokes2DSpectral(grid=jg, dtype=jnp.dtype(dtype), **kw)
+    nt = teq.NavierStokes2DSpectral(
+        grid=tg, dtype=torch.float64 if dtype == np.float64 else torch.float32,
+        device="cpu", **kw)
+    args = (DT, 3, 7, 2, 16)  # warmup, total steps, record every, stored size
+    w0 = _spectrum(2, dtype)
+    rj = jgen.make_batch_pipeline(nj, *args, fields=fields, max_steps_per_program=4)(
+        jnp.asarray(w0))
+    rt = tgen.make_batch_pipeline(nt, *args, fields=fields, max_steps_per_program=4)(
+        torch.from_numpy(w0))
+    assert rt.keys() == rj.keys() == set(fields)
+    for k in fields:
+        ref = np.asarray(rj[k])
+        assert rt[k].shape == ref.shape == (2, 4, 16, 16)
+        if dtype == np.float64:
+            np.testing.assert_allclose(rt[k], ref, rtol=1e-9, atol=1e-9)
+        else:
+            np.testing.assert_allclose(rt[k], ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def _cli(tmp, num_samples, *extra):
+    return ["--no-cuda", "--grid-size", str(N), "--subsample", "2",
+            "--num-samples", str(num_samples), "--batch-size", "2",
+            "--time", "0.008", "--time-warmup", "0.004", "--dt", str(DT),
+            "--num-steps", "2", "--filepath", str(tmp), "--filename", "mc.npz",
+            *extra]
+
+
+def test_cli_writes_loadable_dataset_and_resumes(tmp_path):
+    path = tgen.main_mcwilliams(_cli(tmp_path / "a", 3))
+    data = jdatasets.load_trajectory_dict(path)
+    w = data["vorticity"]
+    assert w.dtype == np.float32 and w.shape[0] == 3 and w.shape[-2:] == (16, 16)
+    assert np.isfinite(w).all()
+    np.testing.assert_array_equal(data["random_states"], [0, 1, 2])
+    assert data["stream"].shape == (3, 0)
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    assert meta["fft_impl"] == "dft_galerkin_fused" and meta["dt"] == DT
+
+    mtime = os.path.getmtime(path)
+    assert tgen.main_mcwilliams(_cli(tmp_path / "a", 3)) == path
+    assert os.path.getmtime(path) == mtime  # complete: nothing regenerated
+
+    tgen.main_mcwilliams(_cli(tmp_path / "a", 5))  # resume: samples 3 and 4
+    resumed = jdatasets.load_trajectory_dict(path)
+    np.testing.assert_array_equal(resumed["random_states"], [0, 1, 2, 3, 4])
+    np.testing.assert_array_equal(resumed["vorticity"][:3], w)
+    fresh = jdatasets.load_trajectory_dict(tgen.main_mcwilliams(_cli(tmp_path / "b", 5)))
+    np.testing.assert_array_equal(resumed["vorticity"], fresh["vorticity"])
+
+
+def test_cli_double_runs_fp64_fft(tmp_path):
+    path = tgen.main_mcwilliams(_cli(tmp_path, 2, "--double", "--extra-vars"))
+    data = jdatasets.load_trajectory_dict(path)
+    assert data["vorticity"].dtype == np.float64
+    assert data["residual"].shape == data["vorticity"].shape
+    with open(path + ".meta.json") as f:
+        assert json.load(f)["fft_impl"] == "fft"
+
+
+def test_cli_without_card_or_no_cuda_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [a for a in _cli(tmp_path, 2) if a != "--no-cuda"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgen.main_mcwilliams(argv)
+
+
+def test_unported_entry_points_raise(tmp_path, monkeypatch):
+    for main in (tgen.main_kolmogorov, tgen.main_fno):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main([])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgen.main_mcwilliams(_cli(tmp_path, 2, "--data-parallel"))
+    monkeypatch.setattr(sys, "argv", ["generate", "nope"])
+    with pytest.raises(SystemExit):
+        tgen.main()

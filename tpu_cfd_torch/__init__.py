@@ -1,0 +1,19 @@
+"""tpu_cfd_torch: the PyTorch and CUDA port of ``tpu_cfd`` for NVIDIA Hopper.
+
+A package beside the JAX one, held against it by the tests. It imports
+``torch`` and never ``jax`` nor anything of ``tpu_cfd``. So far it carries
+McWilliams dataset generation by the pseudo-spectral vorticity solver, with
+the fused RK4-CN step as hand-written CUDA kernels
+(``ops/cuda/csrc/spectral_step.cu``).
+"""
+
+__version__ = "0.1.0"
+
+from tpu_cfd_torch import boundaries, grids
+from tpu_cfd_torch.grids import Grid, GridArray, GridVariable
+from tpu_cfd_torch.boundaries import (
+    BCType,
+    ConstantBoundaryConditions,
+    HomogeneousBoundaryConditions,
+    periodic_boundary_conditions,
+)

@@ -1,0 +1,394 @@
+"""Turbulence dataset generation on the card: the McWilliams2d CLI (PyTorch).
+
+Counterpart of ``tpu_cfd/data/generate.py``. The per-batch pipeline is:
+initial vorticity -> warmup rollout -> recorded rollout in chunks, each
+chunk inverse-transformed and bilinearly subsampled on the device -> npz
+part files, with resume, a sidecar meta file and a divergence guard.
+
+Usage (the JAX package's flags; ``--no-cuda`` runs on the CPU):
+  python -m tpu_cfd_torch.data.generate mcwilliams --grid-size 256 \
+      --subsample 4 --num-samples 1152 --batch-size 128 --visc 1e-3 \
+      --time 10 --time-warmup 4.5 --dt 1e-3 --num-steps 100
+
+The ``kolmogorov`` and ``fno`` datasets and ``--data-parallel`` are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_cfd_torch import grids
+from tpu_cfd_torch.data import data_utils
+from tpu_cfd_torch.device import resolve_device
+from tpu_cfd_torch.solvers import equations, initial_conditions as ic
+from tpu_cfd_torch.solvers import trajectories
+from tpu_cfd_torch.solvers.equations import (
+    NavierStokes2DSpectral,
+    RK4CrankNicolsonStepper,
+)
+
+_NOT_PORTED = (
+    "is not ported to PyTorch yet: it waits for ROADMAP.md Queue A item 1 "
+    "(the kolmogorov and fno CLIs with filtered_velocity_field, GRF2d and the "
+    "FVM pieces they need); use `python -m tpu_cfd.data.generate` meanwhile"
+)
+
+
+def _subsample_field(x: torch.Tensor, ns: int) -> torch.Tensor:
+    """Bilinear downsample of (..., n, n) fields to (..., ns, ns).
+
+    Antialiased, as ``jax.image.resize(..., "bilinear")`` is when it
+    downsamples.
+    """
+    if x.shape[-1] == ns:
+        return x
+    lead, n = x.shape[:-2], x.shape[-1]
+    y = F.interpolate(x.reshape(-1, 1, n, n), size=(ns, ns), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.reshape(*lead, ns, ns)
+
+
+def make_batch_pipeline(
+    ns2d: NavierStokes2DSpectral,
+    dt: float,
+    warmup_steps: int,
+    total_steps: int,
+    record_every: int,
+    ns: int,
+    fields=("vorticity",),
+    max_steps_per_program: int = 2000,
+):
+    """Returns a fn: ŵ0 batch -> physical-space records dict (host numpy).
+
+    The warmup runs in calls of at most ``max_steps_per_program`` steps, and
+    the recording rollout in chunks of as many steps, each chunk
+    inverse-transformed and subsampled before it leaves the device.
+    """
+    n = ns2d.grid.shape[-1]
+
+    def postprocess(recs):
+        return {
+            k: _subsample_field(torch.fft.irfft2(v, s=(n, n)), ns)
+            for k, v in recs.items()
+        }
+
+    @torch.no_grad()
+    def pipeline(vort_hat: torch.Tensor) -> Dict[str, np.ndarray]:
+        remaining = warmup_steps
+        while remaining > 0:
+            s = min(max_steps_per_program, remaining)
+            vort_hat = ns2d.forward(vort_hat, dt, steps=s)[0]
+            remaining -= s
+        result, _ = trajectories.get_trajectory_imex_chunked(
+            ns2d,
+            vort_hat,
+            dt,
+            num_steps=total_steps,
+            record_every_steps=record_every,
+            fields=fields,
+            records_per_chunk=max(1, max_steps_per_program // record_every),
+            postprocess=postprocess,
+        )
+        return result
+
+    return pipeline
+
+
+def _read_meta(meta_path: str) -> dict:
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            return json.load(f)
+    return {}
+
+
+def _write_meta(meta_path: str, meta: dict) -> None:
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+
+
+def _repin_meta(
+    meta_path: str, new_impl: str, *, record_mix: bool, base: dict | None = None
+) -> None:
+    """Rewrite the sidecar's ``fft_impl`` pin to the impl actually in use.
+
+    With ``record_mix``, a different earlier pin is folded into
+    ``mixed_fft_impls``. ``base`` seeds the full sidecar schema when the
+    file is missing or empty.
+    """
+    meta = _read_meta(meta_path)
+    if not meta and base:
+        meta = dict(base)
+    old = meta.get("fft_impl")
+    if record_mix and old and old != new_impl:
+        mixed = set(meta.get("mixed_fft_impls", [])) | {old, new_impl}
+        meta["mixed_fft_impls"] = sorted(mixed)
+    meta["fft_impl"] = new_impl
+    _write_meta(meta_path, meta)
+
+
+def run_generation(
+    args,
+    make_initial_vorticity,
+    forcing_fn=None,
+    solver=None,
+    logger=None,
+    example_name: str = "ns2d",
+):
+    """Shared batch-generation driver (resume-aware, incremental saves).
+
+    ``make_initial_vorticity(sample_ids, grid, dtype, device)`` returns the
+    ``(b, n, n)`` initial vorticity of those samples.
+    """
+    if args.boundary != "periodic":
+        raise NotImplementedError(
+            f"--boundary {args.boundary}: spectral data generation is periodic-only"
+        )
+    if getattr(args, "data_parallel", False):
+        raise NotImplementedError(
+            "--data-parallel is not ported to PyTorch yet: it waits for "
+            "ROADMAP.md Queue A item 6 (torch.distributed data parallelism)"
+        )
+    device = resolve_device("cpu" if args.no_cuda else None)
+    n = args.grid_size
+    subsample = args.subsample
+    ns = n // subsample
+    diam = data_utils.parse_diam(args.diam)
+    visc = args.visc if args.Re is None else 1.0 / args.Re
+    T, T_warmup, dt = args.time, args.time_warmup, args.dt
+    record_steps = args.num_steps
+    warmup_steps = int(T_warmup / dt)
+    total_steps = int((T - T_warmup) / dt)
+    record_every = max(1, total_steps // record_steps)
+    save_dtype = np.float64 if args.double else np.float32
+    compute_dtype = torch.float64 if args.double else torch.float32
+
+    filepath = args.filepath or data_utils.DATA_PATH
+    os.makedirs(filepath, exist_ok=True)
+    if args.filename is None:
+        extra = "_extra" if args.extra_vars else ""
+        dtype_str = "_fp64" if args.double else ""
+        res = f"{n}to{ns}" if subsample > 1 else f"{ns}x{ns}"
+        args.filename = (
+            f"{example_name}{extra}{dtype_str}_{res}_N{args.num_samples}"
+            f"_v{visc:.0e}_T{int(T)}_steps{record_steps}.npz"
+        ).replace("e-0", "e-")
+    data_filepath = os.path.join(filepath, args.filename)
+    meta_path = data_filepath + ".meta.json"
+
+    logger = logger or data_utils.get_logger()
+    logger.info(" | ".join(f"{k}={v}" for k, v in vars(args).items()))
+
+    existing = 0
+    if os.path.exists(data_filepath) and not args.force_rerun:
+        existing = data_utils.count_existing_samples(data_filepath)
+        if existing >= args.num_samples:
+            logger.info(f"{data_filepath} already has {existing} samples; done.")
+            return data_filepath
+    elif args.force_rerun and os.path.exists(data_filepath):
+        os.remove(data_filepath)
+        if os.path.exists(meta_path):
+            os.remove(meta_path)
+    existing = max(existing, data_utils.count_existing_samples(data_filepath))
+    if existing >= args.num_samples:
+        data_utils.merge_parts(data_filepath)
+        return data_filepath
+
+    grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
+    fft_impl = getattr(args, "fft_impl", None)
+    fft_impl_explicit = fft_impl is not None
+    fused_ok = solver is None or (
+        isinstance(solver, RK4CrankNicolsonStepper)
+        and solver.low_storage and solver.order == 4
+    )
+    if fft_impl is None:
+        fft_impl = equations.recommended_fft_impl(
+            n, args.batch_size, double=args.double, dealias=not args.no_dealias,
+        )
+        if fft_impl.endswith("_fused") and not fused_ok:
+            fft_impl = "dft_galerkin"
+    elif fft_impl.endswith("_fused") and not fused_ok:
+        raise ValueError(
+            f"--fft-impl {fft_impl} is incompatible with this "
+            f"dataset's time integrator ({type(solver).__name__}); the "
+            "fused kernel implements the low-storage RK4-CN stepper only"
+        )
+    mxu_precision = getattr(args, "mxu_precision", "high")
+
+    def _impl_compatible(impl: str) -> bool:
+        """Can ``impl`` run under this invocation's solver configuration?"""
+        if impl.endswith("_fused"):
+            return fused_ok and not args.double and not args.no_dealias
+        if impl == "dft_galerkin":
+            return not args.no_dealias
+        return True
+
+    # the sidecar pins the transform of a resumable run; parts of one
+    # dataset never mix transforms silently. Writes wait until every
+    # validation below has passed.
+    sidecar_needs_repin = False
+    if existing > 0 and os.path.exists(meta_path):
+        meta = _read_meta(meta_path)
+        rec_impl = meta.get("fft_impl")
+        rec_prec = meta.get("mxu_precision")
+        if rec_impl and rec_impl != fft_impl:
+            if fft_impl_explicit:
+                logger.warning(
+                    f"resuming {data_filepath} with --fft-impl {fft_impl} "
+                    f"but existing samples were generated with {rec_impl}; "
+                    "the dataset will mix transform implementations"
+                )
+                sidecar_needs_repin = True
+            elif not _impl_compatible(rec_impl):
+                logger.warning(
+                    f"resume: recorded fft_impl={rec_impl} is incompatible "
+                    "with this run's integrator/precision/dealias settings; "
+                    f"continuing with {fft_impl} — the dataset will mix "
+                    "transform implementations"
+                )
+                sidecar_needs_repin = True
+            else:
+                logger.info(
+                    f"resume: adopting recorded fft_impl={rec_impl} "
+                    f"(current default would be {fft_impl})"
+                )
+                fft_impl = rec_impl
+                if rec_prec:
+                    mxu_precision = rec_prec
+    fused = fft_impl.endswith("_fused")
+    ns2d = NavierStokes2DSpectral(
+        viscosity=visc,
+        grid=grid,
+        drag=args.gamma,
+        smooth=not args.no_dealias,
+        forcing_fn=forcing_fn,
+        solver=solver or RK4CrankNicolsonStepper(),
+        dtype=compute_dtype,
+        fft_impl=fft_impl[: -len("_fused")] if fused else fft_impl,
+        mxu_precision=mxu_precision,
+        fused=fused,
+        device=device,
+    )
+    fields = (
+        ("vorticity", "stream", "vort_t", "residual")
+        if args.extra_vars
+        else ("vorticity",)
+    )
+    pipeline = make_batch_pipeline(
+        ns2d, dt, warmup_steps, total_steps, record_every, ns, fields=fields,
+        max_steps_per_program=args.max_steps_per_program,
+    )
+
+    meta_now = {
+        "fft_impl": fft_impl, "mxu_precision": mxu_precision,
+        "dt": dt, "visc": visc, "seed": args.seed,
+        "double": bool(args.double), "dealias": not args.no_dealias,
+    }
+    if existing == 0:
+        _write_meta(meta_path, meta_now)
+    elif sidecar_needs_repin:
+        _repin_meta(meta_path, fft_impl, record_mix=True, base=meta_now)
+
+    batch_size = args.batch_size
+    todo = args.num_samples - existing
+    num_batches = math.ceil(todo / batch_size)
+    logger.info(
+        f"Generating {todo} samples in {num_batches} batches "
+        f"(resuming from {existing}) on {device} -> {data_filepath}"
+    )
+
+    for b in range(num_batches):
+        idx0 = existing + b * batch_size
+        sample_ids = np.arange(idx0, min(idx0 + batch_size, args.num_samples))
+        logger.info(
+            f"batch [{b + 1}/{num_batches}] samples {sample_ids[0]}..{sample_ids[-1]}"
+        )
+        vort_init = make_initial_vorticity(sample_ids, grid, compute_dtype, device)
+        result = pipeline(torch.fft.rfft2(vort_init))
+        result = {k: np.asarray(v, dtype=save_dtype) for k, v in result.items()}
+
+        w = result["vorticity"]
+        if not np.isfinite(w).all():
+            raise FloatingPointError(
+                f"trajectory diverged in batch {b} (samples {sample_ids[0]}..)"
+            )
+        vort_norm = np.linalg.norm(w[:, -1], axis=(-2, -1)).mean() / ns
+        logger.info(
+            f"  final-snapshot vorticity ell2 {vort_norm:.4e} | shapes {w.shape}"
+        )
+
+        if not args.extra_vars:
+            for key in ("vort_t", "stream", "residual"):
+                result[key] = np.empty((len(sample_ids), 0), dtype=save_dtype)
+        result["random_states"] = np.asarray(sample_ids, dtype=np.int32)
+        data_utils.save_part(result, data_filepath)
+
+    data_utils.merge_parts(data_filepath)
+    logger.info(f"Done: {data_filepath}")
+    if args.demo_plots:
+        try:
+            out = data_utils.verify_trajectories(
+                data_filepath, dt=record_every * dt, T_warmup=T_warmup,
+                n_samples=1,
+            )
+            logger.info(f"verification plot: {out}")
+        except Exception as e:  # plotting must never kill a finished run
+            logger.error(f"Error in plotting: {e}")
+    return data_filepath
+
+
+def main_mcwilliams(argv=None):
+    """Decaying isotropic turbulence, McWilliams-1984 initial condition."""
+    parser = data_utils.get_args_ns2d(
+        "Generate NSE 2d decaying turbulence with McWilliams initial vorticity"
+    )
+    parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
+                        diam=2 * math.pi, forcing="none")
+    args = parser.parse_args(argv)
+
+    def make_ic(sample_ids, grid, dtype, device):
+        noise = torch.stack([
+            torch.randn(grid.shape, dtype=dtype, device=device,
+                        generator=ic.sample_generator(args.seed, i, device))
+            for i in sample_ids
+        ])
+        return ic.vorticity_field(grid, args.peak_wavenumber, dtype=dtype,
+                                  noise=noise).data
+
+    return run_generation(
+        args, make_ic, forcing_fn=None, example_name="McWilliams2d",
+    )
+
+
+def main_kolmogorov(argv=None):
+    raise NotImplementedError(f"the kolmogorov dataset {_NOT_PORTED}")
+
+
+def main_fno(argv=None):
+    raise NotImplementedError(f"the fno dataset {_NOT_PORTED}")
+
+
+_MAINS = {
+    "mcwilliams": main_mcwilliams,
+    "kolmogorov": main_kolmogorov,
+    "fno": main_fno,
+}
+
+
+def main():
+    if len(sys.argv) < 2 or sys.argv[1] not in _MAINS:
+        print(f"usage: python -m tpu_cfd_torch.data.generate {{{'|'.join(_MAINS)}}} [flags]")
+        raise SystemExit(2)
+    return _MAINS[sys.argv[1]](sys.argv[2:])
+
+
+if __name__ == "__main__":
+    main()

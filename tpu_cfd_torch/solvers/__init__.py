@@ -1,0 +1,21 @@
+"""Solver runtime: equations, time steppers, forcings, initial conditions,
+and trajectory rollout."""
+
+from tpu_cfd_torch.solvers.equations import (
+    IMEXStepper,
+    ImplicitExplicitODE,
+    NavierStokes2DSpectral,
+    RK4CrankNicolsonStepper,
+    stable_time_step,
+)
+from tpu_cfd_torch.solvers.forcings import (
+    ForcingFn,
+    KolmogorovForcing,
+    SimpleSolenoidalForcing,
+    SinCosForcing,
+)
+from tpu_cfd_torch.solvers.initial_conditions import vorticity_field
+from tpu_cfd_torch.solvers.trajectories import (
+    get_trajectory_imex,
+    update_residual,
+)
