@@ -1,0 +1,102 @@
+"""The SFNO kernels on the card against their plain PyTorch versions.
+
+Imports only torch and the port, so it runs where JAX is not installed:
+``python -m pytest -m cuda tests/test_torch_cuda_kernels.py`` on a machine
+with a card. Everywhere else each test skips. Tolerance: max abs error
+within 1e-5 of the plain version's largest entry (one launch, fp32 sums in
+another order); gradients of the whole SFNO within 1e-4 of each leaf's.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_cfd_torch import models as tm
+from tpu_cfd_torch.models.fused_conv import make_dft2d_ops
+from tpu_cfd_torch.ops.cuda import ffn as tffn
+from tpu_cfd_torch.ops.cuda import spectral_conv as sc
+
+pytestmark = pytest.mark.cuda
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-30))
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """The kernels' wrappers routed to their plain versions."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sc, "modes", sc._modes_plain)
+        mp.setattr(sc, "inverse", sc._inverse_plain)
+        mp.setattr(tffn, "ffn_forward", tffn._ffn_plain)
+        yield
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -m cuda tests/test_torch_cuda_kernels.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [16, 64, 96])  # 96: a ragged second tile
+def test_dft_kernels_match_plain(dev, n):
+    """modes/inverse kernels vs plain, forward and backward (each the other's)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    modes, inverse = make_dft2d_ops(n, n, 8, 8, dev)
+    v = torch.randn(3, 5, n, n, device=dev, generator=gen)
+    outs, grads = [], []
+    sc.reset_launch_counts()
+    for route in (contextlib.nullcontext(), _plain_versions()):
+        with route:
+            x = v.clone().requires_grad_(True)
+            g = modes(x)
+            y = inverse(g * (1 + 0.5j), 1.0 / (n * n))
+            (y * v).sum().backward()
+        outs.append(torch.cat([torch.view_as_real(g).flatten(), y.flatten()]))
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == {"modes": 2, "inverse": 2}
+    assert _rel_err(outs[0], outs[1]) < 1e-5
+    assert _rel_err(grads[0], grads[1]) < 1e-5
+
+
+@pytest.mark.parametrize("act", sorted(tffn.ACTIVATIONS))
+def test_ffn_kernel_matches_plain(dev, act):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = 2 * torch.randn(3, 7, 13, 10, device=dev, generator=gen)  # 273 rows
+    w1, b1 = 0.5 * torch.randn(40, 10, device=dev, generator=gen), torch.randn(40, device=dev)
+    w2, b2 = 0.3 * torch.randn(10, 40, device=dev, generator=gen), torch.randn(10, device=dev)
+    tffn.reset_launch_counts()
+    got = tffn.pointwise_ffn(x, w1, b1, w2, b2, act)
+    with _plain_versions():
+        want = tffn.pointwise_ffn(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    assert tffn.LAUNCHES["ffn"] == 1
+    assert _rel_err(got, want) < 1e-5
+
+
+def test_sfno_kernel_route_matches_plain(dev):
+    """The small SFNO through the kernels vs through their plain versions."""
+    model = tm.SFNO(modes_x=4, modes_y=4, modes_t=3, width=4, num_spectral_layers=3,
+                    activation="GELU")
+    tm.init_like_flax(model, torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn(2, 16, 16, 10, device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(2))
+    outs, grads = [], []
+    for route in (contextlib.nullcontext(), _plain_versions()):
+        model.zero_grad()
+        with route:
+            out = model(x)
+            out.square().sum().backward()
+        outs.append(out)
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    assert _rel_err(outs[0], outs[1]) < 1e-5
+    for k in grads[0]:
+        assert _rel_err(grads[0][k], grads[1][k]) < 1e-4, k

@@ -21,7 +21,9 @@ def _imported_modules(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 10
-    assert (ROOT / "tpu_cfd_torch" / "ops" / "cuda" / "csrc" / "spectral_step.cu").exists()
+    csrc = ROOT / "tpu_cfd_torch" / "ops" / "cuda" / "csrc"
+    for source in ("spectral_step.cu", "spectral_conv.cu", "ffn.cu"):
+        assert (csrc / source).exists(), source
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

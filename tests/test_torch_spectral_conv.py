@@ -1,0 +1,145 @@
+"""The port's fused spectral conv (models/fused_conv.py) vs the JAX Pallas one.
+
+On the CPU the DFT kernels run their plain PyTorch versions; they are held
+against ``tpu_cfd.models.pallas_conv.fused_spectral_conv_s`` in interpret
+mode (as tests/test_pallas_conv.py runs it), on the same numpy inputs and
+flax parameters carried across by ``tpu_cfd_torch.convert``: values to
+1e-5 and gradients (input and real-pair weights) to 1e-4 of the largest
+reference entry, the tolerances of tests/test_pallas_conv.py. Gradients are
+compared through real quantities only, where PyTorch's complex-gradient
+convention and JAX's agree. The CUDA kernels run only on the card:
+tests/test_torch_cuda_kernels.py holds them against the plain versions
+there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_cfd.models.pallas_conv import fused_spectral_conv_s as jax_fused
+from tpu_cfd.models.sfno import SpectralConvS as JaxConvS
+from tpu_cfd_torch import convert
+from tpu_cfd_torch.models.fused_conv import fused_spectral_conv_s, make_dft2d_ops
+from tpu_cfd_torch.models.sfno import SpectralConvS
+from tpu_cfd_torch.ops.cuda import spectral_conv as sc
+
+torch.set_num_threads(2)
+
+CASES = {
+    "bias": dict(b=2, nx=16, ny=16, nt=6, ci=4, co=5, modes=(4, 4, 3), bias=True),
+    "no_bias": dict(b=2, nx=16, ny=16, nt=6, ci=4, co=5, modes=(4, 4, 3), bias=False),
+    "ci_ne_co_clipped_mt": dict(b=2, nx=16, ny=16, nt=4, ci=3, co=7,
+                                modes=(4, 4, 5), bias=True),
+    "nx_ne_ny": dict(b=1, nx=16, ny=12, nt=5, ci=2, co=3, modes=(4, 3, 3),
+                     bias=True),
+}
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-30))
+
+
+def _setup(case, seed=0):
+    """Random flax params (non-zero bias) and input; the port's conv loaded."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((case["b"], case["nx"], case["ny"], case["nt"],
+                             case["ci"])).astype(np.float32)
+    jconv = JaxConvS(in_channels=case["ci"], out_channels=case["co"],
+                     modes=case["modes"], bias=case["bias"], impl="dft")
+    shapes = jax.eval_shape(jconv.init, jax.random.PRNGKey(0), v)["params"]
+    params = {k: (rng.uniform(0, 0.05, s.shape) if k.startswith("weight")
+                  else rng.standard_normal(s.shape)).astype(np.float32)
+              for k, s in shapes.items()}
+    tconv = SpectralConvS(case["ci"], case["co"], case["modes"], bias=case["bias"])
+    tconv.load_state_dict(convert.state_dict_from_flax("SpectralConv", params))
+    return jconv, params, tconv, v, rng
+
+
+def _jax_out_and_grads(jconv, params, v, r):
+    def loss(v_, p_):
+        w = jconv.apply({"params": p_}, method=lambda m: m.compact_weight())
+        bc = (jconv.apply({"params": p_}, method=lambda m: m.compact_bias())
+              if jconv.bias else None)
+        out = jax_fused(v_, w, bc, jconv.modes, delta=jconv.delta, interpret=True)
+        return (out * r).sum(), out
+
+    (_, out), (gv, gp) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(v), jax.tree_util.tree_map(jnp.asarray, params))
+    return np.asarray(out), np.asarray(gv), {k: np.asarray(g) for k, g in gp.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_conv_matches_jax_pallas(name):
+    case = CASES[name]
+    jconv, params, tconv, v, rng = _setup(case)
+    r = rng.standard_normal((case["b"], case["nx"], case["ny"], case["nt"],
+                             case["co"])).astype(np.float32)
+    out_j, gv_j, gp_j = _jax_out_and_grads(jconv, params, v, r)
+
+    vt = torch.from_numpy(v).requires_grad_(True)
+    out_t = tconv(vt)   # float32, dft, backward norm: the fused route
+    (out_t * torch.from_numpy(r)).sum().backward()
+
+    assert out_t.shape == out_j.shape
+    assert _rel_err(out_t.detach(), out_j) < 1e-5
+    assert _rel_err(vt.grad, gv_j) < 1e-4
+    grads = dict(tconv.named_parameters())
+    for k, g in gp_j.items():
+        assert _rel_err(grads[k].grad, g) < 1e-4, k
+
+
+def test_fused_route_matches_dft_apply():
+    """The port's fused route and its own einsum ``_dft_apply`` agree."""
+    _, _, tconv, v, _ = _setup(CASES["bias"], seed=3)
+    x = torch.from_numpy(v)
+    assert _rel_err(tconv(x).detach(), tconv._dft_apply(x).detach()) < 1e-5
+
+
+def test_plain_functions_gradcheck_fp64():
+    """The plain modes/inverse Functions' backwards are their exact adjoints
+    under PyTorch's complex convention (each launches the other)."""
+    modes, inverse = make_dft2d_ops(6, 5, 2, 2, "cpu", torch.float64)
+    gen = torch.Generator().manual_seed(0)
+    v = torch.randn(1, 2, 6, 5, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(modes, (v,))
+    g = torch.randn(1, 2, 4, 4, dtype=torch.complex128, generator=gen,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(lambda g_: inverse(g_, 0.3), (g,))
+
+
+def test_backward_runs_the_partner_transform(monkeypatch):
+    calls = []
+    for name in ("modes", "inverse"):
+        monkeypatch.setattr(sc, name, lambda *a, _n=name, _f=getattr(sc, name):
+                            calls.append(_n) or _f(*a))
+    modes, inverse = make_dft2d_ops(8, 8, 2, 2, "cpu")
+    v = torch.randn(1, 1, 8, 8, requires_grad=True)
+    inverse(modes(v), 1 / 64).sum().backward()
+    assert calls == ["modes", "inverse", "modes", "inverse"]
+
+
+def test_non_cpu_tensors_never_fall_back():
+    c = {"FyT": torch.zeros(8, 4, dtype=torch.complex64),
+         "FxT": torch.zeros(8, 4, dtype=torch.complex64)}
+    with pytest.raises(ValueError, match="no spectral-conv kernel"):
+        sc.modes(torch.zeros(1, 1, 8, 8, device="meta"), c)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            sc._launch_modes(torch.zeros(1, 1, 8, 8), c)
+    with pytest.raises(ValueError, match="float32-only"):
+        fused_spectral_conv_s(torch.zeros(1, 8, 8, 4, 2, dtype=torch.float64),
+                              torch.zeros(4, 4, 3, 2, 2, dtype=torch.complex128),
+                              None, (2, 2, 3))
+
+
+def test_flops_at_the_recipe():
+    # b=64, P = 10 steps x 10 channels, 64^2, 2m = 64: a real FFT of each
+    # plane (2.5 N log2 N) needs fewer than the dense 6.7 + 13.4 GFLOP, and
+    # is the count the bound in chip_smoke.py uses
+    assert sc.flops(64 * 100, 64, 64, 64, 64) == 786_432_000
+    # few modes: the dense truncated DFT is the cheaper one
+    assert sc.flops(1, 64, 64, 2, 2) == 4 * 64 * 64 * 2 + 8 * 2 * 64 * 2

@@ -4,7 +4,9 @@ A package beside the JAX one, held against it by the tests. It imports
 ``torch`` and never ``jax`` nor anything of ``tpu_cfd``. So far it carries
 McWilliams dataset generation by the pseudo-spectral vorticity solver, with
 the fused RK4-CN step as hand-written CUDA kernels
-(``ops/cuda/csrc/spectral_step.cu``).
+(``ops/cuda/csrc/spectral_step.cu``), and SFNO training (``models``,
+``train``), with the truncated 2-D DFT pair and the pointwise FFN as
+hand-written CUDA kernels (``ops/cuda/csrc/spectral_conv.cu``, ``ffn.cu``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,373 @@
+"""SFNO, the spatiotemporal Fourier Neural Operator, as ``torch.nn`` modules.
+
+Counterpart of ``tpu_cfd/models/sfno.py``, channels-last ``(b, x, y, t, c)``:
+``SFNO.forward`` takes ``(b, x, y, t_in)`` vorticity and returns
+``(b, x, y, out_steps)`` (or ``(..., 2)`` for a Helmholtz-projected velocity
+with ``out_dim=2``), at any space-time discretization. Module attributes
+follow ``tpu_cfd_torch.convert``, which maps them to the flax names.
+
+``SpectralConvS`` on a float32 input with ``impl="dft"`` and
+``norm="backward"`` runs through the truncated 2-D DFT kernels
+(``models/fused_conv.py``); every other spectral conv runs
+``SpectralConv._dft_apply`` (or the FFT path), as the whole JAX model does.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from tpu_cfd_torch.models.base import (
+    LayerNormnd,
+    PointwiseFFN,
+    SpectralConv,
+    get_activation,
+    view_as_complex,
+)
+from tpu_cfd_torch.models.fused_conv import fused_spectral_conv_s
+
+Tensor = torch.Tensor
+
+
+def _coords(nx: int, ny: int, nt: int, max_time_steps: int):
+    gridt = np.linspace(0, 1, max_time_steps + 1)[1: nt + 1]
+    return np.meshgrid(np.linspace(0, 1, nx), np.linspace(0, 1, ny), gridt,
+                       indexing="ij")
+
+
+@functools.lru_cache(maxsize=8)
+def _pe_table(nx: int, ny: int, nt: int, num_channels: int, modes: tuple,
+              expanded: bool, max_time_steps: int, scale: float,
+              dtype: torch.dtype, device: str) -> Tensor:
+    """The ``(1, x, y, t, C)`` encoding, computed in fp64 on the host."""
+    gridx, gridy, gridt = _coords(nx, ny, nt, max_time_steps)
+    pe = [gridx, gridy, gridt]
+    if expanded:
+        for i in range(1, modes[0] + 1):
+            basis_x = np.sin if i % 2 == 0 else np.cos
+            for j in range(1, modes[1] + 1):
+                basis_y = np.sin if j % 2 == 0 else np.cos
+                for k in range(1, modes[2] + 1):
+                    basis_t = np.sin if k % 2 == 0 else np.cos
+                    pe.append(1 / (i * j * k) * np.exp(scale * gridt)
+                              * basis_x(np.pi * i * gridx)
+                              * basis_y(np.pi * j * gridy)
+                              * basis_t(np.pi * k * gridt))
+    else:
+        t = gridt[0, 0, :]
+        for k in range(num_channels - 3):
+            basis = np.sin if k % 2 == 0 else np.cos
+            profile = np.exp(scale * t) * basis(np.pi * (k + 1) * t)
+            pe.append(np.broadcast_to(profile[None, None, :], (nx, ny, nt)))
+    pe = np.stack(pe, axis=-1)[None]
+    return torch.from_numpy(np.ascontiguousarray(pe)).to(device=device, dtype=dtype)
+
+
+class SpaceTimePositionalEncoding(nn.Module):
+    """Sinusoidal space-time PE with exponential time scaling.
+
+    Channels are the (x, y, t) coordinates plus ``num_channels - 3``
+    temporal bases ``exp(beta*t) * sin/cos(pi*(k+1)*t)``; with
+    ``spatial_random_feats`` the ``modes_x*modes_y*modes_t`` product basis is
+    projected to ``num_channels`` by ``dense``. Adding the PE to a
+    single-channel input broadcasts it to ``num_channels``.
+    """
+
+    def __init__(self, modes_x: int = 16, modes_y: int = 16, modes_t: int = 5,
+                 num_channels: int = 20, spatial_random_feats: bool = False,
+                 max_time_steps: int = 100, time_exponential_scale: float = 1e-2):
+        super().__init__()
+        self.modes_x, self.modes_y, self.modes_t = modes_x, modes_y, modes_t
+        self.num_channels = num_channels
+        self.spatial_random_feats = spatial_random_feats
+        self.max_time_steps = max_time_steps
+        self.time_exponential_scale = time_exponential_scale
+        if spatial_random_feats:
+            self.dense = nn.Linear(3 + modes_x * modes_y * modes_t, num_channels)
+
+    def forward(self, v: Tensor) -> Tensor:
+        """(b, x, y, t, 1) -> (b, x, y, t, num_channels)."""
+        _, nx, ny, nt, _ = v.shape
+        pe = _pe_table(nx, ny, nt, self.num_channels,
+                       (self.modes_x, self.modes_y, self.modes_t),
+                       self.spatial_random_feats, self.max_time_steps,
+                       self.time_exponential_scale, v.dtype, str(v.device))
+        if self.spatial_random_feats:
+            pe = self.dense(pe)
+        return v + pe
+
+
+class HelmholtzProjection(nn.Module):
+    """Frequency-domain Leray projection: û - ∇(∇·û)/Δ̂.
+
+    Operates on the channels-last half spectrum ``(b, x, y, kt, 2)``; the
+    (full) x/y frequency meshes come from the input's shape.
+    """
+
+    def __init__(self, diam: float = 2 * np.pi):
+        super().__init__()
+        self.diam = diam
+
+    @staticmethod
+    def _fft_mesh(nx: int, diam: float, dtype, device):
+        k = torch.fft.fftfreq(nx, d=diam / nx, dtype=dtype, device=device)
+        kx, ky = torch.meshgrid(k, k, indexing="ij")
+        return kx[..., None], ky[..., None]
+
+    @staticmethod
+    def div(uhat: Tensor, fft_mesh) -> Tensor:
+        kx, ky = fft_mesh
+        return 2j * np.pi * (uhat[..., 0] * kx + uhat[..., 1] * ky)
+
+    @staticmethod
+    def grad(uhat: Tensor, fft_mesh) -> Tensor:
+        kx, ky = fft_mesh
+        return torch.stack([2j * np.pi * kx * uhat, 2j * np.pi * ky * uhat], dim=-1)
+
+    def forward(self, uhat: Tensor, fft_mesh=None) -> Tensor:
+        _, nx, ny, nt, d = uhat.shape
+        if d != 2:
+            raise ValueError("Helmholtz projection expects a 2-component field")
+        if fft_mesh is not None:
+            kx, ky = fft_mesh
+        else:
+            kx, ky = self._fft_mesh(nx, self.diam, uhat.real.dtype, uhat.device)
+        lap = -4 * (np.pi ** 2) * (kx ** 2 + ky ** 2)
+        lap = lap.clone()
+        lap[0, 0] = 1.0
+        grad_div_u = self.grad(self.div(uhat, (kx, ky)), (kx, ky))
+        return uhat - grad_div_u / lap[..., None]
+
+
+class SpectralConvS(SpectralConv):
+    """Space-focused 3-D spectral conv: 4 (x,y)-corner blocks, low t modes."""
+
+    def forward(self, v: Tensor, out_mesh_size=None) -> Tensor:
+        if self.impl != "dft":
+            return super().forward(v, out_mesh_size=out_mesh_size)
+        same_mesh = out_mesh_size is None or tuple(out_mesh_size) == tuple(v.shape[1:4])
+        if same_mesh and v.dtype == torch.float32 and self.norm == "backward":
+            return fused_spectral_conv_s(
+                v, self.compact_weight(),
+                self.compact_bias() if self.bias else None,
+                self.modes, self.delta, self.norm)
+        return self._dft_apply(v, out_mesh_size=out_mesh_size)
+
+    def spectral_conv(self, vh: Tensor, kx: int, ky: int, kt: int) -> Tensor:
+        b = vh.shape[0]
+        modes_x, modes_y, modes_t = self.modes
+        out = vh.new_zeros((b, kx, ky, kt, self.out_channels))
+        slice_x = [slice(0, modes_x), slice(-modes_x, None)]
+        slice_y = [slice(0, modes_y), slice(-modes_y, None)]
+        st = slice(0, modes_t)
+        for ix, sx in enumerate(slice_x):
+            for iy, sy in enumerate(slice_y):
+                w = view_as_complex(getattr(self, f"weight_{ix + 2 * iy}"))
+                block = self.complex_matmul(vh[:, sx, sy, st, :], w)
+                if self.bias:
+                    bias = view_as_complex(getattr(self, f"bias_{ix + 2 * iy}"))
+                    block = block + self.delta * bias[..., None]
+                out[:, sx, sy, st, :] = block
+        return out
+
+
+class SpectralConvT(SpectralConvS):
+    """Time-focused spectral conv with output-steps resampling.
+
+    The irfft output length sets the temporal resolution; left temporal
+    zero-padding suppresses aliasing from the non-periodic time axis.
+    Always ``_dft_apply`` (or the FFT path), never the fused kernels.
+    """
+
+    def __init__(self, *args, out_steps: Optional[int] = None,
+                 temporal_padding: bool = False,
+                 postprocess: Optional[nn.Module] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.out_steps = out_steps
+        self.temporal_padding = temporal_padding
+        self.postprocess = postprocess
+
+    def _compact_helmholtz(self, dtype, device):
+        """Adapter: Helmholtz postprocess on the compact mode spectrum."""
+        mx, my, _ = self.modes
+        diam = getattr(self.postprocess, "diam", 2 * np.pi)
+        rdtype = torch.float64 if dtype == torch.float64 else torch.float32
+        k_signed = lambda m: torch.from_numpy(  # noqa: E731
+            np.concatenate([np.arange(m), -np.arange(m, 0, -1)]) / diam
+        ).to(device=device, dtype=rdtype)
+        kx = k_signed(mx)[:, None, None]
+        ky = k_signed(my)[None, :, None]
+        post = lambda uhat, mesh: self.postprocess(uhat, fft_mesh=mesh)  # noqa: E731
+        return post, (kx, ky)
+
+    def forward(self, v: Tensor, out_steps: Optional[int] = None) -> Tensor:
+        if out_steps is None and self.out_steps is not None:
+            out_steps = self.out_steps
+        if self.impl == "dft":
+            _, nx, ny, nt, _ = v.shape
+            t_pad = nt if self.temporal_padding else 0
+            if out_steps is None:
+                out_steps = nt
+            post = mesh = None
+            if self.postprocess is not None:
+                post, mesh = self._compact_helmholtz(v.dtype, v.device)
+            return self._dft_apply(
+                v, out_mesh_size=(nx, ny, out_steps + t_pad), t_pad=t_pad,
+                keep_last=out_steps, postprocess=post, postprocess_mesh=mesh)
+        if self.temporal_padding:
+            t_pad = v.shape[-2]
+            v = torch.nn.functional.pad(v, (0, 0, t_pad, 0))
+        else:
+            t_pad = 0
+        _, nx, ny, ntp, _ = v.shape
+        if out_steps is None:
+            out_steps = ntp - t_pad
+        axes = (-4, -3, -2)
+        v_hat = torch.fft.rfftn(v, dim=axes, norm=self.norm)
+        v_hat = self.spectral_conv(v_hat, nx, ny, ntp // 2 + 1)
+        if self.postprocess is not None:
+            v_hat = self.postprocess(v_hat)
+        v = torch.fft.irfftn(v_hat, s=(nx, ny, out_steps + t_pad), dim=axes,
+                             norm=self.norm)
+        if self.temporal_padding:
+            v = v[..., -out_steps:, :]
+        return v
+
+
+class LiftingOperator(nn.Module):
+    """PE → LayerNorm → Dense → SpectralConvT to latent_steps (+FFN residual).
+
+    The residual connection is on the last input frame.
+    """
+
+    def __init__(self, width: int, modes_x: int, modes_y: int, modes_t: int,
+                 latent_steps: int = 10, norm: str = "backward",
+                 activation: str = "GELU", beta: float = 0.1,
+                 spatial_random_feats: bool = False, channel_expansion: int = 4,
+                 nonlinear: bool = True, mxu_precision: str = "highest",
+                 impl: str = "dft"):
+        super().__init__()
+        self.latent_steps = latent_steps
+        self.activation = activation if nonlinear else "Identity"
+        pe_modes_t = modes_t - 1 if modes_t % 2 != 0 else modes_t
+        self.pe = SpaceTimePositionalEncoding(
+            modes_x=modes_x // 2, modes_y=modes_y // 2, modes_t=pe_modes_t // 2,
+            num_channels=width, time_exponential_scale=beta,
+            spatial_random_feats=spatial_random_feats)
+        self.norm = LayerNormnd(width)
+        self.dense = nn.Linear(width, width)
+        self.conv = SpectralConvT(
+            width, width, (modes_x, modes_y, modes_t), out_steps=latent_steps,
+            norm=norm, bias=False, mxu_precision=mxu_precision, impl=impl)
+        if nonlinear:
+            self.ffn = PointwiseFFN(width, width, channel_expansion * width,
+                                    activation)
+        else:
+            self.linear = nn.Linear(width, width)
+
+    def forward(self, v: Tensor) -> Tensor:
+        """(b, x, y, t_in, 1) -> (b, x, y, latent_steps, width)."""
+        if self.latent_steps > v.shape[-2]:
+            raise ValueError("latent_steps must be <= input time steps")
+        v = self.dense(self.norm(self.pe(v)))
+        w = self.conv(v)
+        w = self.ffn(w) if hasattr(self, "ffn") else self.linear(w)
+        return get_activation(self.activation)(v[..., -1:, :] + w)
+
+
+class OutConv(nn.Module):
+    """Latent steps → out_steps via a temporally padded SpectralConvT.
+
+    Skip connection from the last input frame; Helmholtz postprocessing for
+    vector (out_dim=2) outputs.
+    """
+
+    def __init__(self, modes_x: int, modes_y: int, modes_t: int,
+                 delta: float = 0.1, out_dim: int = 1, diam: float = 1.0,
+                 out_steps: Optional[int] = None, spatial_padding: int = 0,
+                 temporal_padding: bool = True, norm: str = "backward",
+                 mxu_precision: str = "highest", impl: str = "dft"):
+        super().__init__()
+        self.spatial_padding = spatial_padding
+        self.conv = SpectralConvT(
+            out_dim, out_dim, (modes_x, modes_y, modes_t), norm=norm,
+            delta=delta, out_steps=out_steps, bias=True,
+            temporal_padding=temporal_padding,
+            postprocess=HelmholtzProjection(diam=diam) if out_dim == 2 else None,
+            mxu_precision=mxu_precision, impl=impl)
+
+    def forward(self, v: Tensor, v_res: Tensor, out_steps: int) -> Tensor:
+        """v: (b,x,y,t_latent,d), v_res: (b,x,y,t_in) → (b,x,y,out_steps[,d])."""
+        d = v.shape[-1]
+        v_res = v_res[..., None].expand(*v_res.shape, d)
+        v = torch.cat([v_res[..., -1:, :], v], dim=-2)
+        sp = self.spatial_padding
+        if sp > 0:
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, sp, sp, sp, sp))
+        v = self.conv(v, out_steps=out_steps + 1)
+        if sp > 0:
+            v = v[:, sp:-sp, sp:-sp, :, :]
+        v = v_res[..., -1:, :] + v[..., -out_steps:, :]
+        return v[..., 0] if d == 1 else v
+
+
+class SFNO(nn.Module):
+    """Spatiotemporal FNO: lifting → (n-1)×[SpectralConvS + FFN + 1×1] → out.
+
+    ``forward``: (b, x, y, t_in) -> (b, x, y, out_steps), or (..., 2) for
+    ``out_dim=2``. The JAX model's ``compute_dtype`` and ``remat`` are not
+    ported yet (ROADMAP.md Queue A item 3).
+    """
+
+    def __init__(self, modes_x: int, modes_y: int, modes_t: int, width: int,
+                 out_dim: int = 1, beta: float = -1e-2, delta: float = 1e-1,
+                 num_spectral_layers: int = 4, fft_norm: str = "backward",
+                 activation: str = "ReLU", spatial_padding: int = 0,
+                 temporal_padding: bool = True, channel_expansion: int = 4,
+                 spatial_random_feats: bool = False, lift_activation: bool = True,
+                 latent_steps: int = 10, output_steps: Optional[int] = None,
+                 diam: float = 1.0, mxu_precision: str = "highest",
+                 impl: str = "dft"):
+        super().__init__()
+        self.activation = activation
+        self.output_steps = output_steps
+        modes = (modes_x, modes_y, modes_t)
+        self.lifting = LiftingOperator(
+            width, modes_x, modes_y, modes_t, latent_steps=latent_steps,
+            norm=fft_norm, activation=activation, beta=beta,
+            spatial_random_feats=spatial_random_feats,
+            channel_expansion=channel_expansion, nonlinear=lift_activation,
+            mxu_precision=mxu_precision, impl=impl)
+        layers = range(num_spectral_layers - 1)
+        self.convs = nn.ModuleList(
+            SpectralConvS(width, width, modes, norm=fft_norm,
+                          mxu_precision=mxu_precision, impl=impl) for _ in layers)
+        self.ffns = nn.ModuleList(
+            PointwiseFFN(width, width, channel_expansion * width, activation)
+            for _ in layers)
+        self.skips = nn.ModuleList(nn.Linear(width, width) for _ in layers)
+        self.reduce = nn.Linear(width, out_dim)
+        self.out_conv = OutConv(
+            modes_x, modes_y, modes_t, out_dim=out_dim, delta=delta,
+            out_steps=output_steps, spatial_padding=spatial_padding,
+            temporal_padding=temporal_padding, norm=fft_norm, diam=diam,
+            mxu_precision=mxu_precision, impl=impl)
+
+    def forward(self, v: Tensor, out_steps: Optional[int] = None) -> Tensor:
+        if out_steps is None:
+            out_steps = self.output_steps if self.output_steps is not None else v.shape[-1]
+        v_res = v
+        v = self.lifting(v[..., None])
+        act = get_activation(self.activation)
+        for conv, ffn, skip in zip(self.convs, self.ffns, self.skips):
+            v = act(ffn(conv(v)) + skip(v))
+        v = self.reduce(v)
+        return self.out_conv(v, v_res, out_steps=out_steps)
+
+
+def num_parameters(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,148 @@
+"""Fused pointwise FFN ``act(x @ w1 + b1) @ w2 + b2``: CUDA kernel and wrapper.
+
+Replaces the TPU kernel ``tpu_cfd/ops/pallas/ffn.py::_ffn_kernel`` (its
+``pallas_call`` in ``_ffn_forward``). ``csrc/ffn.cu`` keeps both weight
+matrices in shared memory and the expanded hidden row in registers, so x is
+read once and the output written once (see its header for the bound).
+
+``pointwise_ffn`` is a ``torch.autograd.Function``: its forward is the
+kernel on a CUDA tensor and the plain PyTorch version (``_ffn_plain``) on a
+CPU tensor; its backward is plain PyTorch matmuls on both, as the JAX
+kernel's VJP (``_ffn_bwd``) is plain XLA. Weights use ``nn.Linear``'s
+layout: w1 ``(H, K)``, w2 ``(K_out, H)``.
+
+``ACTIVATIONS`` lists every activation the SFNO takes by the reference's
+names, in the order of the kernel's enum. GELU is the tanh approximation,
+as flax's ``nn.gelu`` is by default.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+ACTIVATIONS = {
+    "ReLU": torch.relu,
+    "GELU": lambda x: F.gelu(x, approximate="tanh"),
+    "SiLU": F.silu,
+    "ELU": F.elu,
+    "CELU": F.celu,
+    "LeakyReLU": lambda x: F.leaky_relu(x, 0.01),
+    "Sigmoid": torch.sigmoid,
+    "Tanh": torch.tanh,
+    "SoftPlus": F.softplus,
+    "Mish": F.mish,
+    "Identity": lambda x: x,
+}
+_ACT_CODE = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+# Kernel launches since the last reset_launch_counts().
+LAUNCHES = {"ffn": 0}
+
+_CUDA_ERROR_INVALID_VALUE = 1  # csrc/ffn.cu's answer to a size it does not take
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _ffn_plain(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+               act: str) -> Tensor:
+    """(M, K) rows -> (M, K_out): the kernel's arithmetic in plain PyTorch."""
+    return F.linear(ACTIVATIONS[act](F.linear(x2, w1, b1)), w2, b2)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from tpu_cfd_torch.ops.cuda import _build
+
+    lib = _build.load("ffn")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pointwise_ffn.argtypes = [P] * 6 + [L, I, I, I, I, P]
+    lib.pointwise_ffn.restype = I
+    return lib
+
+
+def _launch_ffn(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                act: str) -> Tensor:
+    m, k = x2.shape
+    h, k_out = w1.shape[0], w2.shape[0]
+    for name, t, shape in (("x", x2, (m, k)), ("w1", w1, (h, k)), ("b1", b1, (h,)),
+                           ("w2", w2, (k_out, h)), ("b2", b2, (k_out,))):
+        if t.device != x2.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {x2.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    out = torch.empty((m, k_out), dtype=torch.float32, device=x2.device)
+    if m == 0:  # csrc/ffn.cu launches nothing for no rows
+        return out
+    err = _lib().pointwise_ffn(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), m, k, h, k_out, _ACT_CODE[act],
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(
+            f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: K and K_out "
+            "at most 64, and both weight matrices in one block's shared memory")
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel pointwise_ffn failed with cudaError {err}")
+    LAUNCHES["ffn"] += 1
+    return out
+
+
+def ffn_forward(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                act: str) -> Tensor:
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return _ffn_plain(x2, w1, b1, w2, b2, act)
+    if x2.device.type == "cuda":
+        return _launch_ffn(x2, w1, b1, w2, b2, act)
+    raise ValueError(f"no FFN kernel for device {x2.device}")
+
+
+class _PointwiseFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        out = ffn_forward(x2, w1, b1, w2, b2, act)
+        ctx.save_for_backward(x2, w1, b1, w2)
+        ctx.act, ctx.shape = act, x.shape
+        return out.reshape(*x.shape[:-1], w2.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, b1, w2 = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        with torch.enable_grad():
+            pre = F.linear(x2, w1, b1).detach().requires_grad_()
+            h = ACTIVATIONS[ctx.act](pre)
+        (gpre,) = torch.autograd.grad(h, pre, g2 @ w2)
+        gx = (gpre @ w1).reshape(ctx.shape)
+        return (gx, gpre.t() @ x2, gpre.sum(0), g2.t() @ h.detach(), g2.sum(0),
+                None)
+
+
+def pointwise_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                  act: str = "ReLU") -> Tensor:
+    """``act(x @ w1.T + b1) @ w2.T + b2`` over the last axis of x, float32.
+
+    Forward through ``ffn_forward`` (the kernel on CUDA tensors); backward
+    in plain PyTorch.
+    """
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unsupported activation {act!r}; available: "
+                         f"{sorted(ACTIVATIONS)}")
+    return _PointwiseFFN.apply(x, w1, b1, w2, b2, act)
+
+
+def flops(m: int, k: int, h: int, k_out: int) -> int:
+    """Multiply-adds of both products, two flops each (activation not counted)."""
+    return 2 * m * h * (k + k_out)
