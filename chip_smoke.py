@@ -6,7 +6,7 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero,
 printing no result, when either is missing or any phase fails:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the three CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
+2. builds the four CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
    ``nvcc`` each, all at once;
 3. holds each spectral-step kernel, and the whole fused rollout in both
    layouts, against its plain PyTorch version on the same CUDA tensors at
@@ -15,17 +15,34 @@ printing no result, when either is missing or any phase fails:
    mcwilliams`` at 256² → 64², 128 samples, batch 32, 100 warmup + 291
    recorded steps (30 records), checks the dataset, and checks from the
    launch counters that the spectral-step kernels did the stepping;
-5. holds the SFNO kernels against their plain versions at the McWilliams
-   recipe's shapes: the DFT pair (``dft2d_modes``, ``dft2d_inverse``)
-   forward and backward, also at 256², b=2, and against ``torch.fft``
-   where 2m = n; ``pointwise_ffn`` forward (its backward is plain PyTorch);
+5. holds the SFNO kernels against their plain versions at the shapes the
+   main paths give them, the McWilliams recipe's and the optimizer sweep's:
+   the DFT pair (``dft2d_modes``, ``dft2d_inverse``) forward and backward,
+   where 2m = n (64², b=64), at 256² (b=2) and where 2m < n (m=12, 64², b=4,
+   200 planes), and at 64² against ``torch.fft`` too; ``pointwise_ffn`` forward (its
+   backward is plain PyTorch) at 10 → 40 → 10 with GELU and at 20 → 80 → 20
+   with ReLU, each with float32 and with bfloat16 rows; ``adam_step`` over
+   three steps on every leaf shape of both SFNOs and on sizes 1, 3, 10 and
+   4097 with aligned and unaligned pointers, and against
+   ``torch.optim.Adam``;
 6. drives the second main path, ``python -m tpu_cfd_torch.train.train`` at
    the McWilliams recipe (16,469,791 parameters, batch 64, 2 epochs) on
    that dataset, checks the losses, and checks from the launch counters
    that every SpectralConvS and PointwiseFFN ran through the kernels;
 7. times every kernel beside its bound, its plain version and the library
-   call, the rollouts, and the SFNO train step by three routes (kernels,
-   ``impl="fft"``, plain versions).
+   call, the rollouts, the SFNO train step by five routes (kernels,
+   ``impl="fft"``, plain versions, bf16 activations, remat: the last checks
+   the doubled forward launches), the Adam step over all leaves of both
+   SFNOs beside ``torch.optim.Adam`` fused and foreach, and the FNO3d step;
+8. drives the third main path, ``python -m tpu_cfd_torch.train.opt_layout
+   --variants base,fused_adam --check`` at its own configuration (SFNO modes
+   12/12/5, width 20, 64², t 10 → 40, batch 4), checks the losses and that
+   ``adam_step`` launched once a leaf a step and the SFNO kernels ran; then
+   the same with ``--compute-dtype bfloat16 --scan 8``, where the FFN
+   kernel's count must still move;
+9. drives the fourth main path, ``python -m tpu_cfd_torch.train.train_fno3d``
+   (modes 32/5, width 10, batch 4, 2 epochs) on the dataset of phase 4, and
+   checks the parameter count and the losses.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -49,12 +66,23 @@ FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 ROLLOUT_TOL = 5e-6   # rel-L2, kernel vs plain over 10 steps (fp32 sum order)
 KERNEL_TOL = 1e-5    # max abs error / max |plain|, one launch
+# bf16 rows: kernel and plain version each round one fp32 sum to bf16, so they
+# differ by at most one bf16 spacing, 2^-7 of the entry at the low end of a binade
+BF16_TOL = 2.0 ** -7
+ADAM_TOL = 1e-6      # max abs error / max |plain| of p, m, v after three steps
 REFERENCE_TOL = 1e-4  # rel-L2, fp32 fused rollout vs fp64 torch.fft, 20 steps
 FFT_TOL = 1e-4       # max abs error / max |fft|, DFT pair vs torch.fft at 2m = n
 CSRC = "tpu_cfd_torch/ops/cuda/csrc/"
 # the SFNO McWilliams recipe (README; tpu_cfd/train/train.py)
 RECIPE = dict(b=64, n=64, nt=10, width=10, modes=32, modes_t=5, layers=4)
 RECIPE_PARAMS = 16_469_791
+# the optimizer sweep's SFNO (scripts/opt_layout_r4.py) and the FNO3d
+# example's defaults (examples/ex2_fno3d_train.py)
+SWEEP = dict(modes_x=12, modes_y=12, modes_t=5, width=20, beta=1e-2, output_steps=40)
+SWEEP_BATCH = 4
+SWEEP_PARAMS = 9_242_461
+FNO3D_PARAMS = 16_386_997
+LEAVES = 52  # parameter leaves of a 4-layer SFNO: adam_step launches a step
 
 
 def _require(ok: bool, what: str) -> None:
@@ -100,10 +128,10 @@ def main() -> int:
 
     from tpu_cfd_torch import grids
     from tpu_cfd_torch.data import generate
-    from tpu_cfd_torch.models import SFNO, init_like_flax
+    from tpu_cfd_torch.models import FNO3d, SFNO, init_like_flax, make_fno3d_input
     from tpu_cfd_torch.models.fused_conv import _dft2d_constants
     from tpu_cfd_torch.ops import dft2d
-    from tpu_cfd_torch.ops.cuda import _build, ffn as ffn_ops
+    from tpu_cfd_torch.ops.cuda import _build, adam as adam_ops, ffn as ffn_ops
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
     from tpu_cfd_torch.ops.spectral import brick_wall_filter_2d
     from tpu_cfd_torch.solvers import forcings, initial_conditions as ic
@@ -119,11 +147,11 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = ("spectral_step", "spectral_conv", "ffn")
+    sources = ("spectral_step", "spectral_conv", "ffn", "adam")
     with ThreadPoolExecutor(len(sources)) as pool:
         for name, fut in [(s, pool.submit(_build.build, s, (), True)) for s in sources]:
             print(f"build: {name}.cu -> {fut.result().name}", flush=True)
-    ss._lib(), sc._lib(), ffn_ops._lib()
+    ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib()
     print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -143,8 +171,9 @@ def main() -> int:
         got, want = torch.as_tensor(got), torch.as_tensor(want)
         return float((got - want).abs().max()), float(want.abs().max())
 
-    def cuda_ms(fn, iters: int) -> float:
-        fn()
+    def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+        for _ in range(warmup):
+            fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -280,10 +309,10 @@ def main() -> int:
     planes = rb * rt * rw
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def dft_inputs(b, n):
-        cc = _dft2d_constants(n, n, rm, rm, str(dev), "complex64")
-        v = torch.randn(b, rt * rw, n, n, device=dev, generator=gen)
-        g = torch.randn(b, rt * rw, 2 * rm, 2 * rm, dtype=torch.complex64,
+    def dft_inputs(b, n, m, ch):
+        cc = _dft2d_constants(n, n, m, m, str(dev), "complex64")
+        v = torch.randn(b, rt * ch, n, n, device=dev, generator=gen)
+        g = torch.randn(b, rt * ch, 2 * m, 2 * m, dtype=torch.complex64,
                         device=dev, generator=gen)
         return cc, v, g, 1.0 / (n * n * rt)
 
@@ -299,9 +328,12 @@ def main() -> int:
         out = fn(*xs)
         return torch.autograd.grad(out, xs, cot)
 
-    for b, n in ((rb, rn), (2, 256)):
-        cc, v, g, scale = dft_inputs(b, n)
-        tag = f"{n}^2 b{b}"
+    # the recipe's shape, 256^2, and the sweep's: the truncated case 2m < n
+    # at 10 latent steps x 20 channels
+    sm, sw = SWEEP["modes_x"], SWEEP["width"]
+    for b, n, m, ch in ((rb, rn, rm, rw), (2, 256, rm, rw), (SWEEP_BATCH, rn, sm, sw)):
+        cc, v, g, scale = dft_inputs(b, n, m, ch)
+        tag = f"{n}^2 b{b} m{m} {rt * ch} planes"
         e_m = check(f"dft2d_modes {tag}", sc.modes(v, cc), sc._modes_plain(v, cc))
         e_i = check(f"dft2d_inverse {tag}", sc.inverse(g, scale, cc),
                     sc._inverse_plain(g, scale, cc))
@@ -314,33 +346,126 @@ def main() -> int:
             with plain_versions(sc, ffn_ops):
                 p_grad = grads(fn, [x], cot)[0]
             check(f"{nm} backward {tag}", k_grad, p_grad)
-        if n == rn:
+        if (b, n, m) == (rb, rn, rm):
             results["dft2d_modes"] = dict(max_abs_err=e_m)
             results["dft2d_inverse"] = dict(max_abs_err=e_i)
             modes_in, inverse_in, recipe_c, recipe_scale = v, g, cc, scale
-    # an independent reference where 2m = n: torch.fft
+        # an independent reference, also where 2m < n: torch.fft on the whole
+        # mesh, keeping (or filling) only the signed modes -m..m-1 of each axis
+        if n == rn:
+            idx = torch.cat([torch.arange(m), torch.arange(n - m, n)]).to(dev)
+            full = torch.zeros(b, rt * ch, n, n, dtype=torch.complex64, device=dev)
+            full[..., idx[:, None], idx] = g.transpose(-1, -2)
+            for nm, got, want in (
+                    ("dft2d_modes", sc.modes(v, cc),
+                     torch.fft.fft2(v)[..., idx[:, None], idx].transpose(-1, -2)),
+                    ("dft2d_inverse", sc.inverse(g, scale, cc),
+                     torch.fft.ifft2(full).real * (scale * n * n))):
+                max_abs, ref_scale = max_err(got, want)
+                print(f"reference: {nm} {tag} vs torch.fft, max abs err {max_abs:.3e} "
+                      f"(max |fft| {ref_scale:.3e}, tol {FFT_TOL} of it)", flush=True)
+                _require(max_abs <= FFT_TOL * ref_scale, f"{nm} vs torch.fft, {tag}")
+            del full
+    # the library calls of the timing table, at the recipe's shape (2m = n)
     fft_modes = lambda: torch.fft.fft2(modes_in).transpose(-1, -2)  # noqa: E731
     fft_inverse = lambda: torch.fft.ifft2(  # noqa: E731
         inverse_in.transpose(-1, -2)).real * (recipe_scale * rn * rn)
-    for nm, got, want in (
-            ("dft2d_modes", sc.modes(modes_in, recipe_c), fft_modes()),
-            ("dft2d_inverse", sc.inverse(inverse_in, recipe_scale, recipe_c),
-             fft_inverse())):
-        max_abs, ref_scale = max_err(got, want)
-        print(f"reference: {nm} {rn}^2 vs torch.fft, max abs err {max_abs:.3e} "
-              f"(max |fft| {ref_scale:.3e}, tol {FFT_TOL} of it)", flush=True)
-        _require(max_abs <= FFT_TOL * ref_scale, f"{nm} vs torch.fft")
 
-    hidden = 4 * rw
-    rows = rb * rn * rn * rt
-    fx = torch.randn(rb, rn, rn, rt, rw, device=dev, generator=gen)
-    fw = [torch.randn(*s, device=dev, generator=gen) * a for s, a in (
-        ((hidden, rw), 0.3), ((hidden,), 0.1), ((rw, hidden), 0.15), ((rw,), 0.1))]
-    x2 = fx.reshape(-1, rw)
-    # forward only: the FFN's backward is plain PyTorch on either route
-    results["pointwise_ffn"] = dict(max_abs_err=check(
-        f"pointwise_ffn {rows} rows", ffn_ops.ffn_forward(x2, *fw, "GELU"),
-        ffn_ops._ffn_plain(x2, *fw, "GELU")))
+    def ffn_case(b, width, act):
+        """Rows and weights of one PointwiseFFN (width -> 4 width -> width) at
+        b x n x n x nt rows; checks the kernel on float32 and on bfloat16 rows
+        (forward only: the FFN's backward is plain PyTorch on either route)."""
+        rows, hidden = b * rn * rn * rt, 4 * width
+        x = torch.randn(rows, width, device=dev, generator=gen)
+        w = [torch.randn(*s, device=dev, generator=gen) * a for s, a in (
+            ((hidden, width), 0.3), ((hidden,), 0.1), ((width, hidden), 0.15),
+            ((width,), 0.1))]
+        tag = f"{rows} rows {width}->{hidden}->{width} {act}"
+        err = check(f"pointwise_ffn {tag}", ffn_ops.ffn_forward(x, *w, act),
+                    ffn_ops._ffn_plain(x, *w, act))
+        xh = x.bfloat16()
+        got, want = (f(xh, *w, act).float()
+                     for f in (ffn_ops.ffn_forward, ffn_ops._ffn_plain))
+        err_h, scale = max_err(got, want)
+        print(f"kernel pointwise_ffn bf16 rows {tag}: max abs err {err_h:.3e} "
+              f"(max |plain| {scale:.3e}, tol {BF16_TOL} of it: one bf16 spacing)",
+              flush=True)
+        _require(err_h <= BF16_TOL * scale, f"pointwise_ffn bf16 vs plain, {tag}")
+        return dict(x=x, xh=xh, w=w, act=act, rows=rows, width=width, hidden=hidden,
+                    err=err, err_bf16=err_h)
+
+    # main path 2 runs the recipe's instance on float32 rows; main path 3 runs
+    # the sweep's (another template instance, ReLU) on float32 and bfloat16
+    ffn_recipe = ffn_case(rb, rw, "GELU")
+    ffn_sweep = ffn_case(SWEEP_BATCH, sw, "ReLU")
+    results["pointwise_ffn"] = dict(max_abs_err=ffn_recipe["err"])
+    results["pointwise_ffn_bf16"] = dict(max_abs_err=ffn_sweep["err_bf16"])
+
+    # adam_step: three steps from random p, g, m, v on every leaf shape of the
+    # recipe's SFNO and on odd sizes, with aligned and unaligned pointers
+    recipe_model = SFNO(modes_x=rm, modes_y=rm, modes_t=RECIPE["modes_t"], width=rw,
+                        num_spectral_layers=RECIPE["layers"], output_steps=rt,
+                        activation="GELU", beta=0.0)
+    sweep_sfno = SFNO(**SWEEP)
+    leaf_shapes = {tag: [tuple(p.shape) for p in model.parameters()]
+                   for tag, model in (("recipe", recipe_model), ("sweep", sweep_sfno))}
+    for tag, want in (("recipe", RECIPE_PARAMS), ("sweep", SWEEP_PARAMS)):
+        _require(len(leaf_shapes[tag]) == LEAVES and sum(
+            int(np.prod(sh)) for sh in leaf_shapes[tag]) == want, f"{tag} leaves")
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+    def adam_state(shape, offset=0):
+        """p, g, m, v of ``shape``; ``offset`` floats into their buffers, so
+        that with offset 1 no pointer is 16-byte aligned."""
+        n = int(np.prod(shape))
+        p, g, m, v = (torch.randn(n + offset, device=dev, generator=gen)[offset:]
+                      .view(shape) for _ in range(4))
+        return p, g, m, v.square_()
+
+    # per group: the largest (err / max |plain|, err) of p, m and v
+    adam_err = {tag: (0.0, 0.0) for tag in ("recipe", "sweep", "odd")}
+    cases = [(tag, sh, 0) for tag, shapes in leaf_shapes.items() for sh in shapes] + [
+        ("odd", (n,), off) for n in (1, 3, 10, 4097) for off in (0, 1)]
+    for tag, shape, offset in cases:
+        p, g, m, v = adam_state(shape, offset)
+        ref = [t.clone() for t in (p, m, v)]
+        for step in (1, 2, 3):
+            adam_ops.adam_step(p, g, m, v, step=step, **hyper)
+            adam_ops._adam_plain(ref[0], g, ref[1], ref[2], step=step, **hyper)
+        for name, a, b in zip("pmv", (p, m, v), ref):
+            max_abs, scale = max_err(a, b)
+            _require(max_abs <= ADAM_TOL * scale,
+                     f"adam_step {name} vs plain on {shape} offset {offset}: "
+                     f"{max_abs:.3e} of {scale:.3e}")
+            adam_err[tag] = max(adam_err[tag], (max_abs / scale, max_abs))
+    torch.cuda.synchronize()
+    print(f"kernel adam_step: 3 steps on {len(cases)} leaves ({LEAVES} of the recipe's "
+          f"SFNO, {LEAVES} of the sweep's, sizes 1/3/10/4097 aligned and unaligned): "
+          f"largest err / max |plain| of p, m, v: "
+          + ", ".join(f"{k} {v[0]:.3e}" for k, v in adam_err.items())
+          + f" (tol {ADAM_TOL})", flush=True)
+    # the kernels line takes main path 3's shapes: the sweep's leaves
+    results["adam_step"] = dict(max_abs_err=adam_err["sweep"][1])
+    # and against torch.optim.Adam from zero moments, on the same gradients
+    worst = 0.0
+    for shape in leaf_shapes["recipe"][:8] + leaf_shapes["sweep"][:8] + [(4097,)]:
+        p = adam_state(shape)[0]
+        q = torch.nn.Parameter(p.clone())
+        opt = torch.optim.Adam([q], lr=hyper["lr"])
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        for step in (1, 2, 3):
+            g = torch.randn(shape, device=dev, generator=gen)
+            adam_ops.adam_step(p, g, m, v, step=step, **hyper)
+            q.grad = g
+            opt.step()
+        for name, a, b in (("p", p, q.detach()), ("m", m, opt.state[q]["exp_avg"]),
+                           ("v", v, opt.state[q]["exp_avg_sq"])):
+            max_abs, scale = max_err(a, b)
+            _require(max_abs <= ADAM_TOL * scale,
+                     f"adam_step {name} vs torch.optim.Adam on {shape}")
+            worst = max(worst, max_abs / scale)
+    print(f"reference: adam_step vs torch.optim.Adam, 3 steps on 17 leaves, largest "
+          f"err / max |reference| {worst:.3e} (tol {ADAM_TOL})", flush=True)
 
     # -- 6. main path 2: SFNO training at the McWilliams recipe -------------
     # the CLI's output paths are read when its modules are imported
@@ -381,10 +506,59 @@ def main() -> int:
     # dense contraction the kernels do: at 2m = n it is bound by bytes
     dft_flops = sc.flops(planes, rn, rn, 2 * rm, 2 * rm)
     dft_bytes = planes * rn * rn * 4 + planes * 4 * rm * rm * 8
-    ffn_flops = ffn_ops.flops(rows, rw, hidden, rw)
-    ffn_bytes = rows * 2 * rw * 4 + sum(t.numel() for t in fw) * 4
+    def ffn_timed(case, bf16: bool):
+        """(kernel, plain version, no library call, flops, bytes) of one case;
+        bf16 rows halve the rows' bytes, the weights and the operations stay."""
+        x, w, act = case["xh" if bf16 else "x"], case["w"], case["act"]
+        nbytes = (case["rows"] * 2 * case["width"] * x.element_size()
+                  + sum(t.numel() for t in w) * 4)
+        return (lambda: ffn_ops.ffn_forward(x, *w, act),
+                lambda: ffn_ops._ffn_plain(x, *w, act), None,
+                ffn_ops.flops(case["rows"], case["width"], case["hidden"],
+                              case["width"]), nbytes)
+
+    x2, fw = ffn_recipe["x"], ffn_recipe["w"]
     chain = lambda: F.linear(F.gelu(F.linear(x2, fw[0], fw[1]), approximate="tanh"),  # noqa: E731
                              fw[2], fw[3])
+
+    def adam_bench(model) -> dict:
+        """One Adam step over all leaves of ``model``: the kernel (one launch
+        a leaf), its plain version, and ``torch.optim.Adam`` fused and foreach
+        on the same leaves."""
+        state = [adam_state(tuple(p.shape)) for p in model.parameters()]
+        numel = sum(p.numel() for p, *_ in state)
+        counter = iter(range(1, 1 << 30))
+
+        def run(fn):
+            step = next(counter)
+            for p, g, m, v in state:
+                fn(p, g, m, v, step=step, **hyper)
+
+        def library(**kw):
+            qs = [torch.nn.Parameter(p.clone()) for p, *_ in state]
+            for q, (_, g, _, _) in zip(qs, state):
+                q.grad = g
+            return torch.optim.Adam(qs, lr=hyper["lr"], **kw).step
+
+        row = {"leaves": len(state), "n_params": numel,
+               "ms": cuda_ms(lambda: run(adam_ops.adam_step), 20, 5),
+               "plain_ms": cuda_ms(lambda: run(adam_ops._adam_plain), 20, 5),
+               "library_ms": cuda_ms(library(fused=True), 20, 5),
+               "library_foreach_ms": cuda_ms(library(foreach=True), 20, 5)}
+        row.update(_bound(10 * numel, adam_ops.BYTES_PER_ELEMENT * numel))
+        return row
+
+    adam_rows = {"sweep": adam_bench(sweep_sfno), "recipe": adam_bench(recipe_model)}
+    for tag, r in adam_rows.items():
+        print(f"time adam_step over the {r['leaves']} leaves of the {tag}'s SFNO "
+              f"({r['n_params']} parameters): {r['ms']:.4f} ms/step, plain "
+              f"{r['plain_ms']:.4f}, torch.optim.Adam fused {r['library_ms']:.4f}, "
+              f"foreach {r['library_foreach_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    # the kernels line takes the main path's shapes: the sweep's 52 leaves
+    results["adam_step"].update(
+        {k: adam_rows["sweep"][k] for k in
+         ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     # name: (kernel, plain version, library call or None, flops, bytes)
     timed = {name: (kern, plain, None, flops, nbytes)
              for name, (kern, plain, flops, nbytes) in kernels.items()}
@@ -395,10 +569,23 @@ def main() -> int:
         "dft2d_inverse": (lambda: sc.inverse(inverse_in, recipe_scale, recipe_c),
                           lambda: sc._inverse_plain(inverse_in, recipe_scale, recipe_c),
                           fft_inverse, dft_flops, dft_bytes),
-        "pointwise_ffn": (lambda: ffn_ops.ffn_forward(x2, *fw, "GELU"),
-                          lambda: ffn_ops._ffn_plain(x2, *fw, "GELU"), None,
-                          ffn_flops, ffn_bytes),
+        # each entry at the shape of the main path whose launches it reports
+        "pointwise_ffn": ffn_timed(ffn_recipe, False),
+        "pointwise_ffn_bf16": ffn_timed(ffn_sweep, True),
     })
+    # the other two instances, for the table only
+    ffn_other = {}
+    for name, case, bf16 in (("recipe_bf16", ffn_recipe, True),
+                             ("sweep_fp32", ffn_sweep, False)):
+        kern, plain, _, flops, nbytes = ffn_timed(case, bf16)
+        ffn_other[name] = {
+            "max_abs_err": case["err_bf16" if bf16 else "err"], "rows": case["rows"],
+            "width": case["width"], "act": case["act"], "ms": cuda_ms(kern, 20),
+            "plain_ms": cuda_ms(plain, 20), **_bound(flops, nbytes)}
+        print(f"time pointwise_ffn {name}: {ffn_other[name]['ms']:.4f} ms, plain "
+              f"{ffn_other[name]['plain_ms']:.4f} ms, bound "
+              f"{ffn_other[name]['bound_ms']:.4f} ms ({ffn_other[name]['bound_by']})",
+              flush=True)
     for name, (kern, plain, lib, flops, nbytes) in timed.items():
         r = results[name]
         r["ms"] = cuda_ms(kern, 20)
@@ -460,11 +647,12 @@ def main() -> int:
                       key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
         ours = sum(e.self_device_time_total for e in kern
-                   if "bgemm_kernel" in e.key or "ffn_kernel" in e.key) / 1e3 / steps
+                   if any(k in e.key for k in ("bgemm_kernel", "ffn_kernel",
+                                               "adam_kernel"))) / 1e3 / steps
         top = [(e.key[:90], e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in kern[:12]]
         print(f"profile {route}: device busy {busy_ms:.3f} of {wall_ms:.3f} ms/step "
-              f"(profiled), share {busy_ms / wall_ms:.3f}; hand-written SFNO kernels "
+              f"(profiled), share {busy_ms / wall_ms:.3f}; hand-written kernels "
               f"{ours:.3f} ms/step", flush=True)
         for name, ms_, count in top:
             print(f"profile {route}:   {ms_:8.3f} ms/step  x{count:5.1f}  {name}",
@@ -485,8 +673,17 @@ def main() -> int:
     train_rows = []
     iters = 10
 
+    route_flags = {"bf16": ["--compute-dtype", "bfloat16"], "remat": ["--remat"]}
+    # under remat the wrapped blocks' forwards run again in the backward pass:
+    # every PointwiseFFN twice, every SpectralConvS's modes twice, and its
+    # inverse once, since the recomputation stops at the block's last saved
+    # tensor, which the inverse transform only consumes
+    route_launches = {"kernels": per_step, "bf16": per_step,
+                      "remat": {"modes": 9, "inverse": 6, "ffn": 8}}
+
     def train_route(route: str) -> dict:
-        model = train.build_model(train.get_parser().parse_args(targv))
+        model = train.build_model(train.get_parser().parse_args(
+            targv + route_flags.get(route, [])))
         if route == "fft":
             model = SFNO(modes_x=rm, modes_y=rm, modes_t=RECIPE["modes_t"], width=rw,
                          num_spectral_layers=RECIPE["layers"], output_steps=rt,
@@ -508,10 +705,10 @@ def main() -> int:
         ms = 1e3 * (time.perf_counter() - t0) / iters
         counts = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
         _require(bool(torch.isfinite(loss)), f"finite loss on the {route} route")
-        if route == "kernels":
-            for key in per_step:
-                _require(counts[key] == iters * per_step[key],
-                         f"{key}: {counts[key]} launches in {iters} steps")
+        for key, want in route_launches.get(route, {}).items():
+            _require(counts[key] == iters * want,
+                     f"{key}: {counts[key]} launches in {iters} {route} steps, "
+                     f"expected {iters * want}")
         row = {"route": route, "ms_per_step": ms, "samples_per_s": rb / (ms * 1e-3),
                "launches_per_step": {k: v / iters for k, v in counts.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -522,12 +719,99 @@ def main() -> int:
         row["profile"] = profile_steps(route, lambda: step(inp, target), 3)
         return row
 
-    for route in ("kernels", "fft"):
+    for route in ("kernels", "fft", "bf16", "remat"):
         train_rows.append(train_route(route))
     with plain_versions(sc, ffn_ops):
         train_rows.append(train_route("plain"))
     print(f"time train step: kernels' bound {kernel_bound_ms:.3f} ms/step "
           f"(6 modes + 6 inverse + 4 ffn launches)", flush=True)
+
+    # the FNO3d train step at the example's defaults (cuFFT and cuBLAS only)
+    fno = FNO3d(rm, rm, RECIPE["modes_t"], width=rw, input_channel=rt)
+    init_like_flax(fno, torch.Generator().manual_seed(0)).to(dev)
+    fno_step = tpipe.make_train_step(
+        fno, lambda out, u: loss_fn(out[0], u),
+        tpipe.get_optimizer("Adam", fno.parameters(), 1e-3))
+    fno_in, fno_target = make_fno3d_input(inp[:4], rt), target[:4]
+    torch.cuda.reset_peak_memory_stats()
+    fno_row = {"batch": 4, "ms_per_step": cuda_ms(lambda: fno_step(fno_in, fno_target), 20),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    fno_row["samples_per_s"] = 4 / (fno_row["ms_per_step"] * 1e-3)
+    print(f"time FNO3d train step b4: {fno_row['ms_per_step']:.3f} ms/step, "
+          f"{fno_row['samples_per_s']:.1f} samples/s, peak {fno_row['peak_gib']:.2f} GiB",
+          flush=True)
+    del fno, fno_step
+
+    # -- 8. main path 3: the optimizer sweep at the script's configuration ----
+    from tpu_cfd_torch.train import opt_layout, train_fno3d
+
+    def sweep(extra, scan: int):
+        """opt_layout.main with the counts set to 0 just before and read just after."""
+        adam_ops.reset_launch_counts()
+        sc.reset_launch_counts()
+        ffn_ops.reset_launch_counts()
+        rows_ = opt_layout.main(["--variants", "base,fused_adam", "--check", *extra,
+                                 *(["--scan", str(scan)] if scan else [])])
+        torch.cuda.synchronize()
+        counts = {**adam_ops.LAUNCHES, **sc.LAUNCHES, **ffn_ops.LAUNCHES}
+        tag = f"{rows_[0]['compute_dtype']} scan {scan}"
+        by = {r["variant"]: r for r in rows_}
+        print(f"main path 3 ({tag}): launches {counts}; "
+              + "; ".join(f"{v} {r['ms_step']:.3f} ms/step, loss {r['loss']:.6f}"
+                          for v, r in by.items()), flush=True)
+        _require(set(by) == {"base", "fused_adam"}, "both variants ran")
+        for v, r in by.items():
+            _require(np.isfinite(r["loss"]) and r["n_params"] == SWEEP_PARAMS
+                     and r["leaves"] == LEAVES, f"sweep {v}: {r}")
+            c = r["check"]  # opt_layout raises when the check fails
+            _require(abs(c["loss"] - c["base_loss"]) <= 2e-5 * abs(c["base_loss"]),
+                     f"sweep --check {v}")
+        want = LEAVES * by["fused_adam"]["steps"]
+        _require(counts["adam"] == want, f"adam launched {counts['adam']} times, "
+                 f"expected {LEAVES} leaves x {by['fused_adam']['steps']} steps")
+        for key in ("modes", "inverse", "ffn"):
+            _require(counts[key] > 0, f"{key} did not launch in the sweep ({tag})")
+        return rows_, counts
+
+    # where the sweep's step spends its time: the device's busy share
+    sweep_model = init_like_flax(SFNO(**SWEEP), torch.Generator().manual_seed(0)).to(dev)
+    sweep_step = opt_layout.build_step(
+        "fused_adam", sweep_model,
+        losses.SobolevLoss(n_grid=rn, norm_order=0, relative=True), 40)
+    sx = torch.randn(SWEEP_BATCH, rn, rn, 10, device=dev, generator=gen)
+    sy = torch.randn(SWEEP_BATCH, rn, rn, 40, device=dev, generator=gen)
+    for _ in range(3):
+        sweep_step(sx, sy)
+    sweep_profile = profile_steps("sweep fused_adam", lambda: sweep_step(sx, sy), 3)
+    del sweep_model, sweep_step
+
+    sweep_rows, sweep_launches = sweep([], 0)
+    bf16_rows, bf16_launches = sweep(["--compute-dtype", "bfloat16"], 8)
+    # every PointwiseFFN of every step and of the check's base model, bf16 too
+    total_steps = sum(r["steps"] + r["check"]["steps"] for r in bf16_rows)
+    _require(bf16_launches["ffn"] == 4 * total_steps,
+             f"ffn launched {bf16_launches['ffn']} times with bf16 activations, "
+             f"expected 4 x {total_steps}")
+    sweep_rows += bf16_rows
+
+    # -- 9. main path 4: FNO3d baseline training on the generated dataset -----
+    # 30 records hold the example's --t-start 10 plus 10 input and 10 output steps
+    print("main path 4: train_fno3d at the example's defaults (--t-start 10, "
+          "10 + 10 steps of the dataset's 30 records), 96 train / 32 test "
+          "samples, batch 4, 2 epochs", flush=True)
+    t0 = time.perf_counter()
+    fno_run = train_fno3d.main(["--data-file", data_path, "--num-samples", "96",
+                                "--num-test-samples", "32", "--epochs", "2"])
+    torch.cuda.synchronize()
+    fhist = fno_run["history"]
+    print(f"main path 4: {fno_run['n_params']} parameters, 2 epochs x 24 steps + "
+          f"32 test samples in {time.perf_counter() - t0:.2f} s, history {fhist}",
+          flush=True)
+    _require(fno_run["n_params"] == FNO3D_PARAMS, f"FNO3d parameters {fno_run['n_params']}")
+    _require(len(fhist) == 2 and all(np.isfinite(
+        [h["train"] for h in fhist] + [h["test"] for h in fhist])),
+        "finite FNO3d train and test losses")
+    _require(next(fno_run["model"].parameters()).is_cuda, "FNO3d trained on the card")
     tmp_ctx.cleanup()
 
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
@@ -535,22 +819,43 @@ def main() -> int:
                "spectral_forward_first": ("spectral_step", "forward_first"),
                "dft2d_modes": ("spectral_conv", "modes"),
                "dft2d_inverse": ("spectral_conv", "inverse"),
-               "pointwise_ffn": ("ffn", "ffn")}
+               "pointwise_ffn": ("ffn", "ffn"),
+               "pointwise_ffn_bf16": ("ffn", "ffn_bf16"),
+               "adam_step": ("adam", "adam")}
     replaces = {"spectral_step": "tpu_cfd/ops/pallas/spectral_step.py:104",
                 "dft2d_modes": "tpu_cfd/models/pallas_conv.py:82",
                 "dft2d_inverse": "tpu_cfd/models/pallas_conv.py:104",
-                "pointwise_ffn": "tpu_cfd/ops/pallas/ffn.py:33"}
+                "pointwise_ffn": "tpu_cfd/ops/pallas/ffn.py:33",
+                "pointwise_ffn_bf16": "tpu_cfd/ops/pallas/ffn.py:33",
+                "adam_step": "scripts/opt_layout_r4.py:119"}
+    shapes = {
+        "spectral_step": f"main path 1: b{B} {N}^2 float32",
+        "spectral_conv": f"main path 2: b{rb} {rt * rw} planes {rn}^2 m{rm} float32",
+        "pointwise_ffn": f"main path 2: {ffn_recipe['rows']} rows {rw}->{4 * rw}->{rw} "
+                         "GELU float32",
+        "pointwise_ffn_bf16": f"main path 3: {ffn_sweep['rows']} rows {sw}->{4 * sw}->{sw} "
+                              "ReLU bfloat16",
+        "adam_step": f"main path 3: the {LEAVES} leaves of its SFNO, {SWEEP_PARAMS} "
+                     "float32 parameters, one step"}
     launches = {**{("spectral_step", k): v for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v for k, v in train_launches.items()
                    if k in sc.LAUNCHES},
-                ("ffn", "ffn"): train_launches["ffn"]}
+                ("ffn", "ffn"): train_launches["ffn"],
+                # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
+                ("ffn", "ffn_bf16"): bf16_launches["ffn"],
+                ("adam", "adam"): sweep_launches["adam"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + src + ".cu",
          "replaces": replaces.get(name, replaces.get(src)),
          "launches": launches[(src, key)], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "shape": shapes.get(name, shapes.get(src))}
         for name, r in results.items() for src, key in [sources[name]]],
+        "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
+        "adam_steps": adam_rows, "ffn_other_instances": ffn_other, "sweep_steps": sweep_rows,
+        "sweep_profile": sweep_profile, "fno3d_step": fno_row,
+        "fno3d_history": fhist,
         "rollouts": rollouts, "train_steps": train_rows,
         "train_step_kernel_bound_ms": kernel_bound_ms,
         "ffn_chain_ms": chain_ms, "card": card}

@@ -1,10 +1,13 @@
-"""The SFNO kernels on the card against their plain PyTorch versions.
+"""The SFNO and Adam kernels on the card against their plain PyTorch versions.
 
 Imports only torch and the port, so it runs where JAX is not installed:
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py`` on a machine
 with a card. Everywhere else each test skips. Tolerance: max abs error
 within 1e-5 of the plain version's largest entry (one launch, fp32 sums in
-another order); gradients of the whole SFNO within 1e-4 of each leaf's.
+another order); gradients of the whole SFNO within 1e-4 of each leaf's; the
+FFN with bfloat16 rows within one bfloat16 spacing (2^-7) of the largest
+entry, as kernel and plain version each round a float32 sum once; ``adam_step``
+within 1e-6 of the largest entry of each of p, m, v over three steps.
 """
 
 import contextlib
@@ -15,6 +18,7 @@ import torch
 
 from tpu_cfd_torch import models as tm
 from tpu_cfd_torch.models.fused_conv import make_dft2d_ops
+from tpu_cfd_torch.ops.cuda import adam as tadam
 from tpu_cfd_torch.ops.cuda import ffn as tffn
 from tpu_cfd_torch.ops.cuda import spectral_conv as sc
 
@@ -80,6 +84,56 @@ def test_ffn_kernel_matches_plain(dev, act):
     torch.cuda.synchronize()
     assert tffn.LAUNCHES["ffn"] == 1
     assert _rel_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("k,h", [(10, 40), (20, 80)])
+def test_ffn_kernel_bf16_rows_match_plain(dev, k, h):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (2 * torch.randn(3, 7, 13, k, device=dev, generator=gen)).bfloat16()
+    w1, b1 = 0.5 * torch.randn(h, k, device=dev, generator=gen), torch.randn(h, device=dev)
+    w2, b2 = 0.3 * torch.randn(k, h, device=dev, generator=gen), torch.randn(k, device=dev)
+    tffn.reset_launch_counts()
+    got = tffn.pointwise_ffn(x, w1, b1, w2, b2, "GELU")
+    with _plain_versions():
+        want = tffn.pointwise_ffn(x, w1, b1, w2, b2, "GELU")
+    torch.cuda.synchronize()
+    assert tffn.LAUNCHES["ffn"] == 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _rel_err(got.float(), want.float()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("offset", [0, 1])  # 1: no pointer is 16-byte aligned
+@pytest.mark.parametrize("n", [1, 3, 10, 4097, 1_024_000])
+def test_adam_kernel_matches_plain(dev, n, offset):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p, g, m, v = (torch.randn(n + offset, device=dev, generator=gen)[offset:]
+                  for _ in range(4))
+    v = v.square_()
+    ref = [t.clone() for t in (p, m, v)]
+    tadam.reset_launch_counts()
+    for step in (1, 2, 3):
+        tadam.adam_step(p, g, m, v, lr=1e-3, step=step)
+        tadam._adam_plain(ref[0], g, ref[1], ref[2], 1e-3, 0.9, 0.999, 1e-8, step)
+    torch.cuda.synchronize()
+    assert tadam.LAUNCHES["adam"] == 3
+    for name, got, want in zip("pmv", (p, m, v), ref):
+        assert _rel_err(got, want) < 1e-6, name
+
+
+def test_adam_kernel_matches_torch_optim(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = torch.randn(20, 20, 12, 12, 5, 2, device=dev, generator=gen)
+    q = torch.nn.Parameter(p.clone())
+    opt = torch.optim.Adam([q], lr=1e-3)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    for step in (1, 2, 3):
+        g = torch.randn(p.shape, device=dev, generator=gen)
+        tadam.adam_step(p, g, m, v, lr=1e-3, step=step)
+        q.grad = g
+        opt.step()
+    assert _rel_err(p, q) < 1e-6
+    assert _rel_err(m, opt.state[q]["exp_avg"]) < 1e-6
+    assert _rel_err(v, opt.state[q]["exp_avg_sq"]) < 1e-6
 
 
 def test_sfno_kernel_route_matches_plain(dev):

@@ -5,7 +5,9 @@ On the CPU the kernel runs its plain PyTorch version; it is held against
 tests/test_pallas.py runs it) for every activation of ``get_activation``,
 with a row count that the Pallas block does not divide: values to 1e-5 and
 gradients (input and all four weights) to 1e-4 of the largest reference
-entry. The CUDA kernel runs only on the card:
+entry. With bfloat16 rows both keep float32 weights and sums and round once at
+the store, so they agree to one bfloat16 spacing (2^-7) of the largest entry.
+The CUDA kernel runs only on the card:
 tests/test_torch_cuda_kernels.py holds it against the plain version there.
 """
 
@@ -79,6 +81,35 @@ def test_ffn_matches_jax_pallas(act):
         assert _rel_err(got, g) < 1e-4, name
 
 
+@pytest.mark.parametrize("act", ["ReLU", "GELU"])
+def test_bf16_rows_match_jax_pallas(act):
+    x, w1, b1, w2, b2, r = _inputs()
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    out_j = pffn.fused_pointwise_ffn(xb, w1, b1, w2, b2, jax_activation(act), 32)
+    assert out_j.dtype == jnp.bfloat16
+    tx = torch.from_numpy(x).bfloat16().requires_grad_(True)
+    assert np.array_equal(tx.detach().float().numpy(), np.asarray(xb.astype(jnp.float32)))
+    ws = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
+          for a in (w1.T, b1, w2.T, b2)]
+    out_t = tffn.pointwise_ffn(tx, *ws, act)
+    assert out_t.dtype == torch.bfloat16
+    want = np.asarray(out_j.astype(jnp.float32))
+    assert _rel_err(out_t.detach().float().numpy(), want) <= 2.0 ** -7
+    # gradients come back in the types of their inputs
+    (out_t.float() * torch.from_numpy(r)).sum().backward()
+    assert tx.grad.dtype == torch.bfloat16
+    assert all(w.grad.dtype == torch.float32 for w in ws)
+    # and equal the float32 FFN's on the same (bf16-valued) rows and
+    # cotangent, up to the rounding of the input gradient
+    x32 = tx.detach().float().requires_grad_(True)
+    ws32 = [w.detach().clone().requires_grad_(True) for w in ws]
+    r16 = torch.from_numpy(r).bfloat16().float()
+    (tffn.pointwise_ffn(x32, *ws32, act) * r16).sum().backward()
+    assert _rel_err(tx.grad.float(), x32.grad) <= 2.0 ** -7
+    for w, w32 in zip(ws, ws32):
+        assert _rel_err(w.grad, w32.grad) < 1e-5
+
+
 def test_module_takes_the_kernel_route_in_fp32_only():
     ffn = PointwiseFFN(K, K_OUT, H, "GELU")
     x = torch.from_numpy(_inputs()[0])
@@ -86,6 +117,13 @@ def test_module_takes_the_kernel_route_in_fp32_only():
     got = ffn(x)
     assert got.grad_fn.name().endswith("_PointwiseFFNBackward")
     assert _rel_err(got.detach(), want.detach()) < 1e-6
+    # bfloat16 rows take it too (float32 weights and sums), float64 does not
+    got16 = ffn(x.bfloat16())
+    assert got16.dtype == torch.bfloat16
+    assert got16.grad_fn.name().endswith("_PointwiseFFNBackward")
+    cast = PointwiseFFN(K, K_OUT, H, "GELU", dtype=torch.bfloat16)
+    cast.load_state_dict(ffn.state_dict())
+    assert torch.equal(cast(x), got16)
     got64 = ffn.double()(x.double())
     assert not got64.grad_fn.name().endswith("_PointwiseFFNBackward")
 
@@ -112,6 +150,12 @@ def test_launch_checks_its_inputs_before_the_kernel():
     x = torch.zeros(4, 6)
     with pytest.raises(ValueError, match="float32"):
         tffn._launch_ffn(x, torch.zeros(8, 6, dtype=torch.float64), torch.zeros(8),
+                         torch.zeros(6, 8), torch.zeros(6), "ReLU")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tffn._launch_ffn(x.half(), torch.zeros(8, 6), torch.zeros(8),
+                         torch.zeros(6, 8), torch.zeros(6), "ReLU")
+    with pytest.raises(ValueError, match="w1 must be float32"):  # weights stay fp32
+        tffn._launch_ffn(x.bfloat16(), torch.zeros(8, 6).bfloat16(), torch.zeros(8),
                          torch.zeros(6, 8), torch.zeros(6), "ReLU")
     with pytest.raises(ValueError, match="contiguous"):
         tffn._launch_ffn(x, torch.zeros(6, 8).t(), torch.zeros(8),

@@ -22,7 +22,7 @@ def _imported_modules(path: Path):
 def test_port_has_files():
     assert len(FILES) > 10
     csrc = ROOT / "tpu_cfd_torch" / "ops" / "cuda" / "csrc"
-    for source in ("spectral_step.cu", "spectral_conv.cu", "ffn.cu"):
+    for source in ("spectral_step.cu", "spectral_conv.cu", "ffn.cu", "adam.cu"):
         assert (csrc / source).exists(), source
 
 

@@ -6,7 +6,10 @@ carried across by ``tpu_cfd_torch.convert`` (perturbed from flax's init so
 that no bias or scale sits at its trivial value). Forward to 1e-5 of the
 largest reference entry; for the whole SFNO, per-leaf gradients to 1e-4 of
 the leaf's largest entry. On the CPU the port's SpectralConvS runs the DFT
-kernels' plain versions and the JAX one its einsum path.
+kernels' plain versions and the JAX one its einsum path. With
+``compute_dtype="bfloat16"`` the two frameworks round at other places, so the
+outputs are held to the rel-L2 0.05 of ``tests/test_models.py``; with
+``remat`` the port equals itself without it exactly and flax to 1e-5 / 1e-4.
 """
 
 import functools
@@ -130,16 +133,16 @@ def test_out_conv(out_dim):
 
 
 @functools.lru_cache(maxsize=None)
-def _sfno_params(out_dim: int):
+def _sfno_params(out_dim: int, **extra):
     kw = dict(modes_x=4, modes_y=4, modes_t=3, width=W, num_spectral_layers=3,
-              activation="GELU", beta=0.0, out_dim=out_dim)
+              activation="GELU", beta=0.0, out_dim=out_dim, **extra)
     jmod, v = jm.SFNO(**kw), _field(B, N, N, NT)
     params = jax.jit(jmod.init)(jax.random.PRNGKey(0), v)
     return kw, jmod, _perturbed(params, 0), v
 
 
-def _sfno_pair(out_dim=1):
-    kw, jmod, params, v = _sfno_params(out_dim)
+def _sfno_pair(out_dim=1, **extra):
+    kw, jmod, params, v = _sfno_params(out_dim, **extra)
     tmod = tm.SFNO(**kw)
     tmod.load_state_dict(convert.sfno_state_dict_from_flax(params))
     return jmod, tmod, params, v
@@ -163,6 +166,91 @@ def test_sfno_forward_and_grads(out_dim):
     g_j = convert.state_dict_from_flax("SFNO", jax.device_get(g_j))
     for name, p in tmod.named_parameters():
         assert _rel_err(p.grad, g_j[name]) < 1e-4, name
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_sfno_remat_matches_flax_and_itself():
+    jmod, tmod, params, v = _sfno_pair(remat=True)
+    _, plain, _, _ = _sfno_pair()
+    assert tmod.state_dict().keys() == plain.state_dict().keys()
+    r = _field(B, N, N, NT, seed=5)
+
+    def loss(p):
+        out = jmod.apply(p, v)
+        return (out * r).sum(), out
+
+    (_, out_j), g_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    outs = []
+    for m in (tmod, plain):
+        out = m(_t(v))
+        (out * _t(r)).sum().backward()
+        outs.append(out.detach())
+    assert torch.equal(outs[0], outs[1])
+    assert _rel_err(outs[0], out_j) < 1e-5
+    g_j = convert.state_dict_from_flax("SFNO", jax.device_get(g_j))
+    for (name, p), (_, q) in zip(tmod.named_parameters(), plain.named_parameters()):
+        assert torch.equal(p.grad, q.grad), name
+        assert _rel_err(p.grad, g_j[name]) < 1e-4, name
+
+
+def test_sfno_remat_launch_counts_double_the_wrapped_forwards(monkeypatch):
+    """What chip_smoke.py expects of the launch counters under remat: each
+    PointwiseFFN's forward runs twice a train step (the lifting's too, inside
+    its block), each SpectralConvS's ``modes`` twice, and its ``inverse`` once:
+    the recomputation stops at the block's last saved tensor, which the
+    inverse transform only consumes."""
+    from tpu_cfd_torch.ops.cuda import ffn as ffn_ops, spectral_conv as sc
+
+    counts = {"modes": 0, "inverse": 0, "ffn": 0}
+
+    def counting(name, fn):
+        def wrapped(*args):
+            counts[name] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(sc, "modes", counting("modes", sc.modes))
+    monkeypatch.setattr(sc, "inverse", counting("inverse", sc.inverse))
+    monkeypatch.setattr(ffn_ops, "ffn_forward", counting("ffn", ffn_ops.ffn_forward))
+    want = {False: {"modes": 4, "inverse": 4, "ffn": 3},
+            True: {"modes": 6, "inverse": 4, "ffn": 6}}
+    for remat in (False, True):
+        _, tmod, _, v = _sfno_pair(remat=remat) if remat else _sfno_pair()
+        for k in counts:
+            counts[k] = 0
+        tmod(_t(v)).square().mean().backward()
+        assert counts == want[remat], remat
+        for k in counts:
+            counts[k] = 0
+        with torch.no_grad():
+            tmod(_t(v))
+        assert counts == {"modes": 2, "inverse": 2, "ffn": 3}
+
+
+def test_sfno_bf16_compute_dtype_matches_flax():
+    jmod, tmod, params, v = _sfno_pair(compute_dtype="bfloat16")
+    _, t32, _, _ = _sfno_pair()
+    assert all(p.dtype == torch.float32 for p in tmod.parameters())
+    o16, o32 = tmod(_t(v)), t32(_t(v)).detach()
+    assert o16.dtype == torch.float32 and o16.shape == o32.shape
+    assert 0 < _rel_l2(o16.detach(), o32) < 0.05
+    assert _rel_l2(o16.detach(), _apply(jmod, params, v)) < 0.05
+    # the backbone really runs in bf16, and through the FFN kernel's wrapper
+    seen = []
+    hook = tmod.ffns[0].register_forward_hook(
+        lambda mod, args, out: seen.append((args[0].dtype, out.dtype, out.grad_fn.name())))
+    tmod(_t(v)).square().mean().backward()
+    hook.remove()
+    assert seen[0][:2] == (torch.bfloat16, torch.bfloat16)
+    assert seen[0][2].endswith("_PointwiseFFNBackward")
+    assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in tmod.parameters())
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        tm.SFNO(modes_x=4, modes_y=4, modes_t=3, width=W, compute_dtype="int8")
 
 
 def test_sfno_recipe_parameter_count():

@@ -93,7 +93,7 @@ def test_dataset_windows_match_jax():
     a, u = gather(torch.from_numpy(ti[0]).long(), torch.from_numpy(ts[0]).long())
     assert np.array_equal(a.numpy(), tin["vorticity"])
     assert np.array_equal(u.numpy(), tout["vorticity"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):  # .mat is a format the port reads
         load_trajectory_dict("x.mat")
 
 
@@ -148,19 +148,75 @@ def test_one_adam_step_matches_optax():
                                    rtol=0, atol=1e-6, err_msg=name)
 
 
+def test_lion_matches_optax():
+    """Three steps with optax.lion's defaults, on a one-cycle schedule."""
+    rng = np.random.default_rng(4)
+    p0 = rng.standard_normal((6, 5)).astype(np.float32)
+    grads = [rng.standard_normal((6, 5)).astype(np.float32) for _ in range(3)]
+    lrs = [1e-2, 3e-2, 2e-2]
+    tx = optax.lion(lambda count: jax.numpy.asarray(lrs)[count])
+    jp = jax.numpy.asarray(p0)
+    state = tx.init(jp)
+    tp = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = tpipeline.get_optimizer("Lion", [tp], lrs[0])
+    assert isinstance(opt, tpipeline.Lion)
+    assert opt.defaults == dict(lr=lrs[0], b1=0.9, b2=0.99, weight_decay=1e-3)
+    for lr, g in zip(lrs, grads):
+        updates, state = tx.update(jax.numpy.asarray(g), state, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.param_groups[0]["lr"] = lr
+        tp.grad = torch.from_numpy(g)
+        opt.step()
+        assert _rel_err(tp.detach().numpy(), jp) < 1e-6
+    assert _rel_err(opt.state[tp]["exp_avg"].numpy(), state[0].mu) < 1e-6
+
+
 def test_optimizers_and_unported_flags():
     p = [torch.nn.Parameter(torch.zeros(2))]
     assert isinstance(tpipeline.get_optimizer("AdamW", p), torch.optim.AdamW)
     assert isinstance(tpipeline.get_optimizer("sgd", p), torch.optim.SGD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.get_optimizer("Lion", p)
-    for flags in (["--data-parallel"], ["--remat"], ["--demo-plots", "2"],
-                  ["--compute-dtype", "bfloat16"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert isinstance(tpipeline.get_optimizer("Lion", p), tpipeline.Lion)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        tpipeline.get_optimizer("lamb", p)
+    for flags in (["--data-parallel"], ["--demo-plots", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 6"):
             train.main(["--no-cuda", *flags])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main([])
+
+
+def test_cli_takes_bf16_remat_and_lion(tmp_path, monkeypatch):
+    """``--compute-dtype bfloat16 --remat --optimizer lion`` on the CPU, from
+    an array that stands in for a generated dataset."""
+    rng = np.random.default_rng(6)
+    path = tmp_path / "traj.npz"
+    np.savez(path, vorticity=rng.standard_normal((6, 25, 16, 16)).astype(np.float32))
+    for var, sub in (("MODEL_PATH", "m"), ("LOG_PATH", "l"), ("FIG_PATH", "f")):
+        monkeypatch.setattr(tpipeline, var, str(tmp_path / sub))
+    monkeypatch.setattr(train, "MODEL_PATH", str(tmp_path / "m"))
+    monkeypatch.setattr(train, "LOG_PATH", str(tmp_path / "l"))
+    common = ["--no-cuda", "--example", "McWilliams2d", "--train-file", str(path),
+              "--res", "16", "--modes", "4", "--modes-t", "3", "--width", "4",
+              "--num-layers", "3", "--batch-size", "2", "--epochs", "2",
+              "--num-samples", "4", "--num-val-samples", "2", "--train-only",
+              "--lr", "1e-3"]
+    base = train.main(common)
+    for flags in (["--compute-dtype", "bfloat16"], ["--remat"],
+                  ["--optimizer", "lion"],
+                  ["--compute-dtype", "bfloat16", "--remat", "--optimizer", "lion"]):
+        out = train.main([*common, *flags])
+        hist = out["history"]
+        assert len(hist) == 2, flags
+        assert all(np.isfinite([h["train"] for h in hist] + [h["val"] for h in hist]))
+        assert out["n_params"] == base["n_params"]
+        assert all(p.dtype == torch.float32 for p in out["model"].parameters())
+        # the same draws and the same initial parameters: the first epoch's
+        # loss moves by bf16 rounding or by the optimizer only
+        assert hist[0]["train"] == pytest.approx(base["history"][0]["train"], rel=0.05)
+        if flags == ["--remat"]:
+            assert hist[1]["train"] == pytest.approx(base["history"][1]["train"], rel=1e-5)
+            assert out["model"].remat and not base["model"].remat
 
 
 def test_cli_trains_on_a_generated_dataset(tmp_path, monkeypatch):

@@ -4,9 +4,12 @@ A package beside the JAX one, held against it by the tests. It imports
 ``torch`` and never ``jax`` nor anything of ``tpu_cfd``. So far it carries
 McWilliams dataset generation by the pseudo-spectral vorticity solver, with
 the fused RK4-CN step as hand-written CUDA kernels
-(``ops/cuda/csrc/spectral_step.cu``), and SFNO training (``models``,
+(``ops/cuda/csrc/spectral_step.cu``), SFNO training (``models``,
 ``train``), with the truncated 2-D DFT pair and the pointwise FFN as
-hand-written CUDA kernels (``ops/cuda/csrc/spectral_conv.cu``, ``ffn.cu``).
+hand-written CUDA kernels (``ops/cuda/csrc/spectral_conv.cu``, ``ffn.cu``),
+the optimizer sweep of the SFNO train step with the one-pass Adam update as
+a hand-written CUDA kernel (``train/opt_layout.py``, ``adam.cu``), and FNO3d
+baseline training (``models/fno3d.py``, ``train/train_fno3d.py``).
 """
 
 __version__ = "0.1.0"

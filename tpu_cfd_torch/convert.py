@@ -18,7 +18,11 @@ The flax names of each module map to the port's attributes:
   ``dense``, ``SpectralConvT_0`` → ``conv``, ``PointwiseFFN_0`` → ``ffn`` (or
   ``Dense_1`` → ``linear`` for a linear lifting);
 - ``PointwiseFFN``: ``Dense_0``/``Dense_1`` → ``dense_0``/``dense_1``;
-- ``OutConv``: ``SpectralConvT_0`` → ``conv``.
+- ``OutConv``: ``SpectralConvT_0`` → ``conv``;
+- ``FNO3d``: ``Dense_0`` (the lifting) → ``lift``, ``SpectralConv3d_{i}`` →
+  ``convs.{i}``, ``MLP3d_{i}`` → ``mlps.{i}``, ``Dense_{i+1}`` (the 1×1 skips)
+  → ``skips.{i}``, ``MLP3d_{L}`` (the output head) → ``head``;
+- ``MLP3d``: ``Dense_0``/``Dense_1`` → ``dense_0``/``dense_1``.
 
 A key the mapping does not know, or one it expects and does not find,
 raises ``KeyError``.
@@ -140,8 +144,22 @@ def _sfno(prefix: str, tree) -> Dict[tuple, _Leaf]:
     return out
 
 
+def _fno3d(prefix: str, tree) -> Dict[tuple, _Leaf]:
+    layers = sum(1 for k in tree if re.fullmatch(r"SpectralConv3d_\d+", str(k)))
+    out = _nest("Dense_0", "", _dense(prefix + "lift."))
+    for i in range(layers):
+        out.update(_nest(f"SpectralConv3d_{i}", "",
+                         _spectral(f"{prefix}convs.{i}.", {})))
+        out.update(_nest(f"MLP3d_{i}", "", _ffn(f"{prefix}mlps.{i}.", None)))
+        out.update(_nest(f"Dense_{i + 1}", "", _dense(f"{prefix}skips.{i}.")))
+    out.update(_nest(f"MLP3d_{layers}", "", _ffn(prefix + "head.", None)))
+    return out
+
+
 _MODULES: Dict[str, Callable] = {
     "SFNO": _sfno,
+    "FNO3d": _fno3d,
+    "MLP3d": _ffn,
     "LiftingOperator": _lifting,
     "OutConv": _out_conv,
     "SpaceTimePositionalEncoding": _pe,
@@ -174,9 +192,10 @@ def _key_map(module: str, tree) -> Dict[tuple, _Leaf]:
 def state_dict_from_flax(module: str, params) -> Dict[str, torch.Tensor]:
     """A flax parameter tree of ``module`` as the port's ``state_dict``.
 
-    ``module`` names the flax class (``"SFNO"``, ``"LiftingOperator"``,
-    ``"OutConv"``, ``"SpectralConv"`` for SpectralConvS/T, ``"PointwiseFFN"``,
-    ``"LayerNormnd"``, ``"Dense"``, ``"SpaceTimePositionalEncoding"``).
+    ``module`` names the flax class (``"SFNO"``, ``"FNO3d"``,
+    ``"LiftingOperator"``, ``"OutConv"``, ``"SpectralConv"`` for
+    SpectralConvS/T/3d, ``"PointwiseFFN"``, ``"MLP3d"``, ``"LayerNormnd"``,
+    ``"Dense"``, ``"SpaceTimePositionalEncoding"``).
     """
     tree = _unwrap(params)
     flat = _flatten(tree)
@@ -222,6 +241,9 @@ def _skeleton(module: str, sd) -> dict:
         return {"bias_0": None} if "bias_0" in sd else {}
     if module == "SpaceTimePositionalEncoding":
         return {"Dense_0": None} if "dense.weight" in sd else {}
+    if module == "FNO3d":
+        layers = len({k.split(".")[1] for k in sd if k.startswith("convs.")})
+        return {f"SpectralConv3d_{i}": {} for i in range(layers)}
     if module not in ("SFNO", "LiftingOperator", "OutConv"):
         return {}
     pre = "lifting." if module == "SFNO" else ""
@@ -248,3 +270,13 @@ def sfno_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 def sfno_flax_from_state_dict(state_dict) -> dict:
     """The port's ``SFNO.state_dict()`` as a flax parameter tree (no wrapper)."""
     return flax_from_state_dict("SFNO", state_dict)
+
+
+def fno3d_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """A flax ``FNO3d`` parameter tree as the port's ``FNO3d.state_dict()``."""
+    return state_dict_from_flax("FNO3d", params)
+
+
+def fno3d_flax_from_state_dict(state_dict) -> dict:
+    """The port's ``FNO3d.state_dict()`` as a flax parameter tree (no wrapper)."""
+    return flax_from_state_dict("FNO3d", state_dict)

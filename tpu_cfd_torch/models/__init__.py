@@ -1,4 +1,4 @@
-"""Neural operators as ``torch.nn`` modules: the SFNO (FNO3d is still to port)."""
+"""Neural operators as ``torch.nn`` modules: the SFNO and the FNO3d baseline."""
 
 from tpu_cfd_torch.models.base import (
     LayerNormnd,
@@ -6,6 +6,13 @@ from tpu_cfd_torch.models.base import (
     SpectralConv,
     get_activation,
     init_like_flax,
+)
+from tpu_cfd_torch.models.fno3d import (
+    FNO3d,
+    MLP3d,
+    SpectralConv3d,
+    add_grid_3d,
+    make_fno3d_input,
 )
 from tpu_cfd_torch.models.sfno import (
     SFNO,

@@ -7,9 +7,15 @@ the last axis, and a spectral weight is stored as real pairs
 ``tpu_cfd_torch.convert``, which carries flax parameters across.
 
 ``PointwiseFFN`` runs through the fused FFN kernel (``ops/cuda/ffn.py``)
-on float32 inputs. ``SpectralConv._dft_apply`` is the mode-truncated
-transform as plain einsums; ``SpectralConvS`` (``models/sfno.py``) routes
-its float32 same-mesh case through the DFT kernels instead.
+on float32 and bfloat16 inputs. ``SpectralConv._dft_apply`` is the
+mode-truncated transform as plain einsums; ``SpectralConvS``
+(``models/sfno.py``) routes its float32 same-mesh case through the DFT
+kernels instead.
+
+A ``compute_dtype`` (``"bfloat16"``) is flax's computation dtype: the
+activation and the weights are cast at the call (``dense``), parameters stay
+float32, and the mode-space math stays complex64 (a bfloat16 input to a
+spectral conv goes up to float32 and the result comes back down).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_cfd_torch.ops.cuda import ffn as ffn_ops
 
@@ -39,6 +47,34 @@ def get_activation(name: str) -> Callable[[Tensor], Tensor]:
             f"{sorted(ffn_ops.ACTIVATIONS)}"
         )
     return ffn_ops.ACTIVATIONS[name]
+
+
+def as_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
+    """A ``compute_dtype`` string as a torch dtype; None stays None (the
+    computation then follows the input's dtype)."""
+    if compute_dtype is None:
+        return None
+    dtype = getattr(torch, str(compute_dtype), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return dtype
+
+
+def dense(layer: nn.Linear, v: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """``layer(v)`` computed in ``dtype``, as flax's ``nn.Dense(dtype=...)``:
+    the input, the weight and the bias are cast at the call."""
+    if dtype is None:
+        return layer(v)
+    return F.linear(v.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def remat_block(module: nn.Module, v: Tensor, remat: bool) -> Tensor:
+    """``module(v)``; with ``remat``, and a graph being recorded, its
+    intermediates are recomputed in the backward pass instead of kept
+    (flax's ``nn.remat``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, v, use_reentrant=False)
+    return module(v)
 
 
 class LayerNormnd(nn.Module):
@@ -61,24 +97,30 @@ class LayerNormnd(nn.Module):
 class PointwiseFFN(nn.Module):
     """Two-layer pointwise (1×1) FFN with channel expansion.
 
-    A float32 input goes through the fused FFN kernel (its plain version on
-    the CPU); other dtypes run the same arithmetic as plain PyTorch, as no
-    fp64 kernel exists.
+    A float32 or bfloat16 input goes through the fused FFN kernel (its plain
+    version on the CPU), which keeps the weights and every sum in float32;
+    float64 runs the same arithmetic as plain PyTorch, as no fp64 kernel
+    exists. ``dtype`` is the computation dtype the input is cast to first
+    (None: the input's own).
     """
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: int,
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", dtype: Optional[torch.dtype] = None):
         super().__init__()
         get_activation(activation)
         self.activation = activation
+        self.dtype = dtype
         self.dense_0 = nn.Linear(in_channels, mid_channels)
         self.dense_1 = nn.Linear(mid_channels, out_channels)
 
     def forward(self, v: Tensor) -> Tensor:
         d0, d1 = self.dense_0, self.dense_1
-        if v.dtype == torch.float32:
-            return ffn_ops.pointwise_ffn(v, d0.weight, d0.bias, d1.weight,
-                                         d1.bias, self.activation)
+        if self.dtype is not None:
+            v = v.to(self.dtype)
+        if v.dtype in ffn_ops.ROW_DTYPES:
+            return ffn_ops.pointwise_ffn(
+                v, d0.weight.float(), d0.bias.float(), d1.weight.float(),
+                d1.bias.float(), self.activation)
         return d1(get_activation(self.activation)(d0(v)))
 
 
@@ -298,6 +340,8 @@ class SpectralConv(nn.Module):
 
     def forward(self, v: Tensor, out_mesh_size: Optional[Sequence[int]] = None
                 ) -> Tensor:
+        if v.dtype == torch.bfloat16:  # rfftn takes fp32/fp64 only
+            return self.forward(v.float(), out_mesh_size).to(torch.bfloat16)
         mesh_size = v.shape[-self.dim - 1: -1]
         out_mesh_size = (tuple(mesh_size) if out_mesh_size is None
                          else tuple(out_mesh_size))

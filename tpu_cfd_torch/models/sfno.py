@@ -10,6 +10,8 @@ follow ``tpu_cfd_torch.convert``, which maps them to the flax names.
 ``norm="backward"`` runs through the truncated 2-D DFT kernels
 (``models/fused_conv.py``); every other spectral conv runs
 ``SpectralConv._dft_apply`` (or the FFT path), as the whole JAX model does.
+A bfloat16 input (``compute_dtype``) goes up to float32 first, so it takes
+the same route, and the result comes back down.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from tpu_cfd_torch.models.base import (
     LayerNormnd,
     PointwiseFFN,
     SpectralConv,
+    as_dtype,
+    dense,
     get_activation,
+    remat_block,
     view_as_complex,
 )
 from tpu_cfd_torch.models.fused_conv import fused_spectral_conv_s
@@ -147,6 +152,8 @@ class SpectralConvS(SpectralConv):
     """Space-focused 3-D spectral conv: 4 (x,y)-corner blocks, low t modes."""
 
     def forward(self, v: Tensor, out_mesh_size=None) -> Tensor:
+        if v.dtype == torch.bfloat16:  # mode-space math stays complex64
+            return self.forward(v.float(), out_mesh_size).to(torch.bfloat16)
         if self.impl != "dft":
             return super().forward(v, out_mesh_size=out_mesh_size)
         same_mesh = out_mesh_size is None or tuple(out_mesh_size) == tuple(v.shape[1:4])
@@ -205,6 +212,8 @@ class SpectralConvT(SpectralConvS):
         return post, (kx, ky)
 
     def forward(self, v: Tensor, out_steps: Optional[int] = None) -> Tensor:
+        if v.dtype == torch.bfloat16:
+            return self.forward(v.float(), out_steps).to(torch.bfloat16)
         if out_steps is None and self.out_steps is not None:
             out_steps = self.out_steps
         if self.impl == "dft":
@@ -249,9 +258,10 @@ class LiftingOperator(nn.Module):
                  activation: str = "GELU", beta: float = 0.1,
                  spatial_random_feats: bool = False, channel_expansion: int = 4,
                  nonlinear: bool = True, mxu_precision: str = "highest",
-                 impl: str = "dft"):
+                 impl: str = "dft", compute_dtype: Optional[str] = None):
         super().__init__()
         self.latent_steps = latent_steps
+        self.dtype = as_dtype(compute_dtype)
         self.activation = activation if nonlinear else "Identity"
         pe_modes_t = modes_t - 1 if modes_t % 2 != 0 else modes_t
         self.pe = SpaceTimePositionalEncoding(
@@ -265,7 +275,7 @@ class LiftingOperator(nn.Module):
             norm=norm, bias=False, mxu_precision=mxu_precision, impl=impl)
         if nonlinear:
             self.ffn = PointwiseFFN(width, width, channel_expansion * width,
-                                    activation)
+                                    activation, dtype=self.dtype)
         else:
             self.linear = nn.Linear(width, width)
 
@@ -273,9 +283,9 @@ class LiftingOperator(nn.Module):
         """(b, x, y, t_in, 1) -> (b, x, y, latent_steps, width)."""
         if self.latent_steps > v.shape[-2]:
             raise ValueError("latent_steps must be <= input time steps")
-        v = self.dense(self.norm(self.pe(v)))
+        v = dense(self.dense, self.norm(self.pe(v)), self.dtype)
         w = self.conv(v)
-        w = self.ffn(w) if hasattr(self, "ffn") else self.linear(w)
+        w = self.ffn(w) if hasattr(self, "ffn") else dense(self.linear, w, self.dtype)
         return get_activation(self.activation)(v[..., -1:, :] + w)
 
 
@@ -319,8 +329,16 @@ class SFNO(nn.Module):
     """Spatiotemporal FNO: lifting → (n-1)×[SpectralConvS + FFN + 1×1] → out.
 
     ``forward``: (b, x, y, t_in) -> (b, x, y, out_steps), or (..., 2) for
-    ``out_dim=2``. The JAX model's ``compute_dtype`` and ``remat`` are not
-    ported yet (ROADMAP.md Queue A item 3).
+    ``out_dim=2``.
+
+    ``compute_dtype="bfloat16"`` stores and computes the activations of the
+    lifting and the backbone in bfloat16 (the lifting's Dense, every
+    PointwiseFFN and the 1×1 skips); parameters stay float32, the mode-space
+    math complex64, and the head and ``OutConv`` run in the input's dtype.
+    ``remat`` recomputes the lifting, each SpectralConvS and each
+    PointwiseFFN in the backward pass (``torch.utils.checkpoint``) instead of
+    keeping their intermediates; the ``state_dict`` is the same either way,
+    and the forward kernels of those blocks then launch twice a train step.
     """
 
     def __init__(self, modes_x: int, modes_y: int, modes_t: int, width: int,
@@ -331,23 +349,27 @@ class SFNO(nn.Module):
                  spatial_random_feats: bool = False, lift_activation: bool = True,
                  latent_steps: int = 10, output_steps: Optional[int] = None,
                  diam: float = 1.0, mxu_precision: str = "highest",
-                 impl: str = "dft"):
+                 impl: str = "dft", compute_dtype: Optional[str] = None,
+                 remat: bool = False):
         super().__init__()
         self.activation = activation
         self.output_steps = output_steps
+        self.dtype = as_dtype(compute_dtype)
+        self.remat = remat
         modes = (modes_x, modes_y, modes_t)
         self.lifting = LiftingOperator(
             width, modes_x, modes_y, modes_t, latent_steps=latent_steps,
             norm=fft_norm, activation=activation, beta=beta,
             spatial_random_feats=spatial_random_feats,
             channel_expansion=channel_expansion, nonlinear=lift_activation,
-            mxu_precision=mxu_precision, impl=impl)
+            mxu_precision=mxu_precision, impl=impl, compute_dtype=compute_dtype)
         layers = range(num_spectral_layers - 1)
         self.convs = nn.ModuleList(
             SpectralConvS(width, width, modes, norm=fft_norm,
                           mxu_precision=mxu_precision, impl=impl) for _ in layers)
         self.ffns = nn.ModuleList(
-            PointwiseFFN(width, width, channel_expansion * width, activation)
+            PointwiseFFN(width, width, channel_expansion * width, activation,
+                         dtype=self.dtype)
             for _ in layers)
         self.skips = nn.ModuleList(nn.Linear(width, width) for _ in layers)
         self.reduce = nn.Linear(width, out_dim)
@@ -361,11 +383,12 @@ class SFNO(nn.Module):
         if out_steps is None:
             out_steps = self.output_steps if self.output_steps is not None else v.shape[-1]
         v_res = v
-        v = self.lifting(v[..., None])
+        v = remat_block(self.lifting, v[..., None], self.remat)
         act = get_activation(self.activation)
         for conv, ffn, skip in zip(self.convs, self.ffns, self.skips):
-            v = act(ffn(conv(v)) + skip(v))
-        v = self.reduce(v)
+            x1 = remat_block(ffn, remat_block(conv, v, self.remat), self.remat)
+            v = act(x1 + dense(skip, v, self.dtype))
+        v = self.reduce(v.to(v_res.dtype))
         return self.out_conv(v, v_res, out_steps=out_steps)
 
 

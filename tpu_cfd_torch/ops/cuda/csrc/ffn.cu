@@ -1,5 +1,5 @@
 // Fused pointwise FFN, out = act(x @ w1^T + b1) @ w2^T + b2, for Hopper
-// (sm_90a), fp32.
+// (sm_90a): fp32 weights and accumulation, fp32 or bf16 input and output.
 //
 // Replaces the TPU kernel tpu_cfd/ops/pallas/ffn.py::_ffn_kernel (the
 // pallas_call in _ffn_forward). That kernel tiles the rows and keeps both
@@ -17,11 +17,16 @@
 // SFNO McWilliams recipe (M = 64*64^2*10 = 2,621,440 rows, K = K_out = 10,
 // H = 40) that is 4.19 GFLOP and 210 MB: 0.063 ms at 67 TFLOP/s fp32
 // and 0.063 ms at 3.35 TB/s (H100 SXM data sheet), so the two balance.
-// Padding K = 10 to P = 12 adds 20 % to the FMAs.
+// Padding K = 10 to P = 12 adds 20 % to the FMAs. With bf16 input and output
+// (the SFNO's compute_dtype) the rows are 2 B an element, so the bytes halve
+// (0.031 ms) and the operations bound it. As the TPU kernel does, it takes
+// the rows in their own type, accumulates in fp32 and rounds once at the
+// store; the weights stay fp32.
 //
 // Plain C interface: pointers and the stream are void*, and the entry
 // point returns cudaGetLastError() right after its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,6 +62,19 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
+__device__ __forceinline__ float load_row(const float* x, long long i) {
+  return x[i];
+}
+__device__ __forceinline__ float load_row(const __nv_bfloat16* x, long long i) {
+  return __bfloat162float(x[i]);
+}
+__device__ __forceinline__ void store_row(float* o, long long i, float y) {
+  o[i] = y;
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16* o, long long i, float y) {
+  o[i] = __float2bfloat16(y);  // round to nearest even
+}
+
 __host__ __device__ constexpr int pad4(int k) { return (k + 3) / 4 * 4; }
 
 // The padded width P a channel count runs at: the next multiple of 4 up to
@@ -72,11 +90,12 @@ size_t ffn_smem(int P, int K, int H, int KO) {
          ((size_t)2 * H * P + pad4(H) + P + (size_t)THREADS * (K + KO));
 }
 
-template <int P>
+// T is the type of the rows of x and out: float or __nv_bfloat16.
+template <int P, typename T>
 __global__ void __launch_bounds__(THREADS) ffn_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1,
+    const T* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* __restrict__ out, long long M,
+    const float* __restrict__ b2, T* __restrict__ out, long long M,
     int K, int H, int KO, int act) {
   extern __shared__ float4 smem4[];
   float* W1s = reinterpret_cast<float*>(smem4);  // [H][P], w1 rows padded
@@ -97,8 +116,8 @@ __global__ void __launch_bounds__(THREADS) ffn_kernel(
 
   const long long r0 = (long long)blockIdx.x * THREADS;
   const int rows = (int)min((long long)THREADS, M - r0);
-  const float* xb = x + r0 * K;
-  for (int i = tid; i < rows * K; i += THREADS) Xs[i] = xb[i];
+  const T* xb = x + r0 * K;
+  for (int i = tid; i < rows * K; i += THREADS) Xs[i] = load_row(xb, i);
   __syncthreads();
 
   if (tid < rows) {
@@ -135,24 +154,35 @@ __global__ void __launch_bounds__(THREADS) ffn_kernel(
       if (k < KO) Os[tid * KO + k] = o[k];
   }
   __syncthreads();
-  float* ob = out + r0 * KO;
-  for (int i = tid; i < rows * KO; i += THREADS) ob[i] = Os[i];
+  T* ob = out + r0 * KO;
+  for (int i = tid; i < rows * KO; i += THREADS) store_row(ob, i, Os[i]);
 }
 
-template <int P>
-int launch(const float* x, const float* w1, const float* b1, const float* w2,
-           const float* b2, float* out, long long M, int K, int H, int KO,
-           int act, cudaStream_t stream) {
+template <int P, typename T>
+int launch_rows(const T* x, const float* w1, const float* b1, const float* w2,
+                const float* b2, T* out, long long M, int K, int H, int KO,
+                int act, cudaStream_t stream) {
   const size_t smem = ffn_smem(P, K, H, KO);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ffn_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ffn_kernel<P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (M + THREADS - 1) / THREADS;
-  ffn_kernel<P><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  ffn_kernel<P, T><<<(unsigned)blocks, THREADS, smem, stream>>>(
       x, w1, b1, w2, b2, out, M, K, H, KO, act);
   return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch(const void* x, const float* w1, const float* b1, const float* w2,
+           const float* b2, void* out, long long M, int K, int H, int KO,
+           int act, int bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch_rows<P>((const __nv_bfloat16*)x, w1, b1, w2, b2,
+                          (__nv_bfloat16*)out, M, K, H, KO, act, stream);
+  return launch_rows<P>((const float*)x, w1, b1, w2, b2, (float*)out, M, K, H,
+                        KO, act, stream);
 }
 
 }  // namespace
@@ -160,30 +190,24 @@ int launch(const float* x, const float* w1, const float* b1, const float* w2,
 extern "C" {
 
 // x (M, K), w1 (H, K), b1 (H), w2 (KO, H), b2 (KO) -> out (M, KO); the
-// nn.Linear layouts. K and KO at most 64; a wider FFN returns
+// nn.Linear layouts. x and out are bf16 when `bf16` is non-zero, else fp32;
+// the weights are fp32 either way. K and KO at most 64; a wider FFN returns
 // cudaErrorInvalidValue without a launch.
 int pointwise_ffn(const void* x, const void* w1, const void* b1,
                   const void* w2, const void* b2, void* out, long long M,
-                  int K, int H, int KO, int act, void* stream) {
-  const float *xp = (const float*)x, *w1p = (const float*)w1,
-              *b1p = (const float*)b1, *w2p = (const float*)w2,
-              *b2p = (const float*)b2;
-  float* op = (float*)out;
+                  int K, int H, int KO, int act, int bf16, void* stream) {
+  const float *w1p = (const float*)w1, *b1p = (const float*)b1,
+              *w2p = (const float*)w2, *b2p = (const float*)b2;
   cudaStream_t s = (cudaStream_t)stream;
   if (M == 0) return 0;
+#define FFN_CASE(P) \
+  case P: return launch<P>(x, w1p, b1p, w2p, b2p, out, M, K, H, KO, act, bf16, s);
   switch (ffn_width(K > KO ? K : KO)) {
-    case 4: return launch<4>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 8: return launch<8>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 12: return launch<12>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 16: return launch<16>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 20: return launch<20>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 24: return launch<24>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 28: return launch<28>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 32: return launch<32>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 48: return launch<48>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
-    case 64: return launch<64>(xp, w1p, b1p, w2p, b2p, op, M, K, H, KO, act, s);
+    FFN_CASE(4) FFN_CASE(8) FFN_CASE(12) FFN_CASE(16) FFN_CASE(20)
+    FFN_CASE(24) FFN_CASE(28) FFN_CASE(32) FFN_CASE(48) FFN_CASE(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FFN_CASE
 }
 
 }  // extern "C"

@@ -11,6 +11,12 @@ CPU tensor; its backward is plain PyTorch matmuls on both, as the JAX
 kernel's VJP (``_ffn_bwd``) is plain XLA. Weights use ``nn.Linear``'s
 layout: w1 ``(H, K)``, w2 ``(K_out, H)``.
 
+The rows of x are float32 or bfloat16 and the output has their type; the
+weights are float32 and every sum is float32, rounded once at the store (the
+TPU kernel's ``preferred_element_type=float32`` and ``astype(o_ref.dtype)``).
+The backward computes in float32 and returns each gradient in the type of
+its input.
+
 ``ACTIVATIONS`` lists every activation the SFNO takes by the reference's
 names, in the order of the kernel's enum. GELU is the tanh approximation,
 as flax's ``nn.gelu`` is by default.
@@ -44,6 +50,8 @@ _ACT_CODE = {name: i for i, name in enumerate(ACTIVATIONS)}
 # Kernel launches since the last reset_launch_counts().
 LAUNCHES = {"ffn": 0}
 
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
 _CUDA_ERROR_INVALID_VALUE = 1  # csrc/ffn.cu's answer to a size it does not take
 
 
@@ -54,8 +62,12 @@ def reset_launch_counts() -> None:
 
 def _ffn_plain(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                act: str) -> Tensor:
-    """(M, K) rows -> (M, K_out): the kernel's arithmetic in plain PyTorch."""
-    return F.linear(ACTIVATIONS[act](F.linear(x2, w1, b1)), w2, b2)
+    """(M, K) rows -> (M, K_out): the kernel's arithmetic in plain PyTorch.
+
+    bfloat16 rows go up to float32, as the weights are, and the result is
+    rounded back once."""
+    xf = x2.float() if x2.dtype == torch.bfloat16 else x2
+    return F.linear(ACTIVATIONS[act](F.linear(xf, w1, b1)), w2, b2).to(x2.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +76,7 @@ def _lib():
 
     lib = _build.load("ffn")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pointwise_ffn.argtypes = [P] * 6 + [L, I, I, I, I, P]
+    lib.pointwise_ffn.argtypes = [P] * 6 + [L, I, I, I, I, I, P]
     lib.pointwise_ffn.restype = I
     return lib
 
@@ -73,21 +85,23 @@ def _launch_ffn(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                 act: str) -> Tensor:
     m, k = x2.shape
     h, k_out = w1.shape[0], w2.shape[0]
+    if x2.dtype not in ROW_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x2.dtype}")
     for name, t, shape in (("x", x2, (m, k)), ("w1", w1, (h, k)), ("b1", b1, (h,)),
                            ("w2", w2, (k_out, h)), ("b2", b2, (k_out,))):
-        if t.device != x2.device or t.dtype != torch.float32:
+        if t.device != x2.device or (t is not x2 and t.dtype != torch.float32):
             raise ValueError(f"{name} must be float32 on {x2.device}, got "
                              f"{t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
-    out = torch.empty((m, k_out), dtype=torch.float32, device=x2.device)
+    out = torch.empty((m, k_out), dtype=x2.dtype, device=x2.device)
     if m == 0:  # csrc/ffn.cu launches nothing for no rows
         return out
     err = _lib().pointwise_ffn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), m, k, h, k_out, _ACT_CODE[act],
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        int(x2.dtype == torch.bfloat16), torch.cuda.current_stream(x2.device).cuda_stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(
             f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: K and K_out "
@@ -120,20 +134,23 @@ class _PointwiseFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w1, b1, w2 = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
+        rows = x2.dtype
+        x2 = x2.to(w1.dtype)
+        g2 = g.reshape(-1, g.shape[-1]).to(w1.dtype)
         with torch.enable_grad():
             pre = F.linear(x2, w1, b1).detach().requires_grad_()
             h = ACTIVATIONS[ctx.act](pre)
         (gpre,) = torch.autograd.grad(h, pre, g2 @ w2)
-        gx = (gpre @ w1).reshape(ctx.shape)
+        gx = (gpre @ w1).reshape(ctx.shape).to(rows)
         return (gx, gpre.t() @ x2, gpre.sum(0), g2.t() @ h.detach(), g2.sum(0),
                 None)
 
 
 def pointwise_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                   act: str = "ReLU") -> Tensor:
-    """``act(x @ w1.T + b1) @ w2.T + b2`` over the last axis of x, float32.
+    """``act(x @ w1.T + b1) @ w2.T + b2`` over the last axis of x.
 
+    x float32 or bfloat16 (the output's type), weights float32.
     Forward through ``ffn_forward`` (the kernel on CUDA tensors); backward
     in plain PyTorch.
     """

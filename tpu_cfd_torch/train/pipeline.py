@@ -34,14 +34,46 @@ def ensure_paths():
         os.makedirs(p, exist_ok=True)
 
 
+class Lion(torch.optim.Optimizer):
+    """``optax.lion`` with its defaults, as plain tensor ops.
+
+    ``p <- p - lr (sign((1 - b1) g + b1 m) + weight_decay p)``, then
+    ``m <- b2 m + (1 - b2) g`` (Chen et al., "Symbolic Discovery of
+    Optimization Algorithms", 2023).
+    """
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.99, weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "exp_avg" not in state:
+                    state["exp_avg"] = torch.zeros_like(p)
+                m, g = state["exp_avg"], p.grad
+                update = torch.sign((1.0 - b1) * g + b1 * m)
+                m.mul_(b2).add_(g, alpha=1.0 - b2)
+                p.add_(update + group["weight_decay"] * p, alpha=-group["lr"])
+        return loss
+
+
 def get_optimizer(name: str, params, learning_rate: float = 1e-3
                   ) -> torch.optim.Optimizer:
     """The optimizer by the reference's names, with optax's defaults."""
     name = name.lower()
     if name == "lion":
-        raise NotImplementedError(
-            "Lion is not ported yet: it waits for ROADMAP.md Queue A item 3 "
-            "(torch.optim has no Lion)")
+        return Lion(params, lr=learning_rate)
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate)
     if name == "adamw":

@@ -13,8 +13,10 @@ Example (the reference's McWilliams run):
       --num-samples 1152 --batch-size 64 --width 10 --modes 32 --modes-t 5 \\
       --num-layers 4 --time-steps 10 --out-time-steps 10 --activation GELU
 
-``--data-parallel``, ``--compute-dtype bfloat16``, ``--remat`` and
-``--demo-plots`` are not ported yet and raise ``NotImplementedError``.
+``--compute-dtype bfloat16`` (bf16 activations in the lifting and the
+backbone), ``--remat`` (activation checkpointing) and ``--optimizer lion``
+work as in the JAX CLI. ``--data-parallel`` and ``--demo-plots`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ DATA_FILES = {
 _NOT_PORTED = {
     "data_parallel": "--data-parallel waits for ROADMAP.md Queue A item 6 "
                      "(torch.distributed data parallelism)",
-    "remat": "--remat waits for ROADMAP.md Queue A item 3 (activation checkpointing)",
     "demo_plots": "--demo-plots waits for ROADMAP.md Queue A item 6 "
                   "(utils/visualizations.py)",
 }
@@ -78,7 +79,8 @@ def build_model(args) -> SFNO:
         output_steps=args.out_time_steps, spatial_padding=args.spatial_padding,
         activation=args.activation, spatial_random_feats=args.spatial_random_feats,
         lift_activation=not args.lift_linear, latent_steps=args.latent_steps,
-        mxu_precision=args.mxu_precision)
+        mxu_precision=args.mxu_precision, compute_dtype=args.compute_dtype,
+        remat=args.remat)
 
 
 def main(args=None) -> dict:
@@ -87,10 +89,6 @@ def main(args=None) -> dict:
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"{why}; not ported to PyTorch yet")
-    if args.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--compute-dtype bfloat16 waits for ROADMAP.md Queue A item 3 (bf16 "
-            "activations); not ported to PyTorch yet")
     device = resolve_device("cpu" if args.no_cuda else None)
     pipeline.ensure_paths()
     stamp = datetime.now().strftime("%d_%b_%Y_%Hh%Mm")
@@ -255,8 +253,14 @@ def get_parser() -> argparse.ArgumentParser:
                         help="accepted for the JAX CLI's flags; every mode "
                              "computes in fp32")
     parser.add_argument("--compute-dtype", type=str, default=None,
-                        choices=["float32", "bfloat16"])
-    parser.add_argument("--remat", default=False, action="store_true")
+                        choices=["float32", "bfloat16"],
+                        help="activation dtype of the lifting and the backbone;"
+                             " parameters, mode-space math and the head stay"
+                             " in the input's dtype")
+    parser.add_argument("--remat", default=False, action="store_true",
+                        help="recompute the lifting/backbone blocks in the"
+                             " backward pass instead of keeping their"
+                             " intermediates")
     parser.add_argument("--norm-order", type=float, default=0.0)
     parser.add_argument("--eval-only", default=False, action="store_true")
     parser.add_argument("--train-only", default=False, action="store_true")
