@@ -19,25 +19,34 @@ printing no result, when either is missing or any phase fails:
    main paths give them, the McWilliams recipe's and the optimizer sweep's:
    the DFT pair (``dft2d_modes``, ``dft2d_inverse``) forward and backward,
    where 2m = n (64², b=64), at 256² (b=2) and where 2m < n (m=12, 64², b=4,
-   200 planes), and at 64² against ``torch.fft`` too; ``pointwise_ffn`` forward (its
+   200 planes), and at 64² against ``torch.fft`` too, with ``dft2d_modes``
+   on its fused tensor-core kernel at 64² and on two passes at 256² (checked
+   by count); ``pointwise_ffn`` forward (its
    backward is plain PyTorch) at 10 → 40 → 10 with GELU and at 20 → 80 → 20
-   with ReLU, each with float32 and with bfloat16 rows; ``adam_step`` over
-   three steps on every leaf shape of both SFNOs and on sizes 1, 3, 10 and
-   4097 with aligned and unaligned pointers, and against
-   ``torch.optim.Adam``;
+   with ReLU, each with float32 and with bfloat16 rows; the multi-tensor
+   Adam over three steps on the 52 leaves of each SFNO in one launch a step,
+   on sizes 1, 3, 10, 4097 and 1,024,000 with aligned and unaligned
+   pointers, on 104 leaves in two launches a step, leaf by leaf
+   (``adam_step``), and against ``torch.optim.Adam``;
 6. drives the second main path, ``python -m tpu_cfd_torch.train.train`` at
    the McWilliams recipe (16,469,791 parameters, batch 64, 2 epochs) on
    that dataset, checks the losses, and checks from the launch counters
-   that every SpectralConvS and PointwiseFFN ran through the kernels;
+   that every SpectralConvS and PointwiseFFN ran through the kernels and
+   every ``dft2d_modes`` through the fused one;
 7. times every kernel beside its bound, its plain version and the library
-   call, the rollouts, the SFNO train step by five routes (kernels,
+   call (the DFT pair at main path 3's m=12 too, and ``dft2d_modes`` on its
+   two-pass route beside the fused one), the rollouts, the SFNO train step
+   by five routes (kernels,
    ``impl="fft"``, plain versions, bf16 activations, remat: the last checks
    the doubled forward launches), the Adam step over all leaves of both
-   SFNOs beside ``torch.optim.Adam`` fused and foreach, and the FNO3d step;
+   SFNOs (through the table main path 3 keeps, through ``adam_step_leaves``,
+   leaf by leaf) beside ``torch.optim.Adam`` fused and foreach, and the
+   FNO3d step;
 8. drives the third main path, ``python -m tpu_cfd_torch.train.opt_layout
    --variants base,fused_adam --check`` at its own configuration (SFNO modes
    12/12/5, width 20, 64², t 10 → 40, batch 4), checks the losses and that
-   ``adam_step`` launched once a leaf a step and the SFNO kernels ran; then
+   the Adam kernel launched once a step over 52 leaves, every
+   ``dft2d_modes`` took the fused kernel and the SFNO kernels ran; then
    the same with ``--compute-dtype bfloat16 --scan 8``, where the FFN
    kernel's count must still move;
 9. drives the fourth main path, ``python -m tpu_cfd_torch.train.train_fno3d``
@@ -82,7 +91,7 @@ SWEEP = dict(modes_x=12, modes_y=12, modes_t=5, width=20, beta=1e-2, output_step
 SWEEP_BATCH = 4
 SWEEP_PARAMS = 9_242_461
 FNO3D_PARAMS = 16_386_997
-LEAVES = 52  # parameter leaves of a 4-layer SFNO: adam_step launches a step
+LEAVES = 52  # parameter leaves of a 4-layer SFNO: the Adam kernel updates a step
 
 
 def _require(ok: bool, what: str) -> None:
@@ -306,7 +315,6 @@ def main() -> int:
 
     # -- 5. the SFNO kernels vs their plain versions ------------------------
     rb, rn, rt, rw, rm = (RECIPE[k] for k in ("b", "n", "nt", "width", "modes"))
-    planes = rb * rt * rw
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def dft_inputs(b, n, m, ch):
@@ -331,9 +339,11 @@ def main() -> int:
     # the recipe's shape, 256^2, and the sweep's: the truncated case 2m < n
     # at 10 latent steps x 20 channels
     sm, sw = SWEEP["modes_x"], SWEEP["width"]
+    dft_cases = {}
     for b, n, m, ch in ((rb, rn, rm, rw), (2, 256, rm, rw), (SWEEP_BATCH, rn, sm, sw)):
         cc, v, g, scale = dft_inputs(b, n, m, ch)
         tag = f"{n}^2 b{b} m{m} {rt * ch} planes"
+        sc.reset_launch_counts()
         e_m = check(f"dft2d_modes {tag}", sc.modes(v, cc), sc._modes_plain(v, cc))
         e_i = check(f"dft2d_inverse {tag}", sc.inverse(g, scale, cc),
                     sc._inverse_plain(g, scale, cc))
@@ -346,10 +356,21 @@ def main() -> int:
             with plain_versions(sc, ffn_ops):
                 p_grad = grads(fn, [x], cot)[0]
             check(f"{nm} backward {tag}", k_grad, p_grad)
-        if (b, n, m) == (rb, rn, rm):
-            results["dft2d_modes"] = dict(max_abs_err=e_m)
-            results["dft2d_inverse"] = dict(max_abs_err=e_i)
-            modes_in, inverse_in, recipe_c, recipe_scale = v, g, cc, scale
+        # the shape alone picks the route: fused where it fits (64^2), else
+        # two passes (256^2); three modes launches here, one in a backward
+        fits = sc.fused_modes_layout(n, n, 2 * m, 2 * m) is not None
+        counts = dict(sc.LAUNCHES)
+        print(f"kernel dft2d_modes {tag}: launches {counts}, fused route {fits}",
+              flush=True)
+        _require(fits == (n == rn) and counts["modes"] == 3
+                 and counts["modes_fused"] == 3 * fits, f"dft2d_modes route at {tag}")
+        # the name of each shape's entry in the kernels line
+        key = {rm: "", sm: "_sweep"}[m] if n == rn else None
+        if key is not None:
+            results["dft2d_modes" + key] = dict(max_abs_err=e_m)
+            results["dft2d_inverse" + key] = dict(max_abs_err=e_i)
+            dft_cases[key] = dict(v=v, g=g, c=cc, scale=scale, planes=b * rt * ch,
+                                  n=n, m=m)
         # an independent reference, also where 2m < n: torch.fft on the whole
         # mesh, keeping (or filling) only the signed modes -m..m-1 of each axis
         if n == rn:
@@ -366,10 +387,33 @@ def main() -> int:
                       f"(max |fft| {ref_scale:.3e}, tol {FFT_TOL} of it)", flush=True)
                 _require(max_abs <= FFT_TOL * ref_scale, f"{nm} vs torch.fft, {tag}")
             del full
-    # the library calls of the timing table, at the recipe's shape (2m = n)
-    fft_modes = lambda: torch.fft.fft2(modes_in).transpose(-1, -2)  # noqa: E731
-    fft_inverse = lambda: torch.fft.ifft2(  # noqa: E731
-        inverse_in.transpose(-1, -2)).real * (recipe_scale * rn * rn)
+
+    def dft_timed(case) -> dict:
+        """name suffix -> (kernel, plain version, library call, flops, bytes)
+        for both transforms at one shape. The library call is torch.fft on
+        the whole mesh: at 2m = n the spectrum is in the kernels' order, else
+        the signed modes are selected (modes) or filled in (inverse)."""
+        v, g, c, s_, n, m = (case[k] for k in ("v", "g", "c", "scale", "n", "m"))
+        flops = sc.flops(case["planes"], n, n, 2 * m, 2 * m)
+        nbytes = case["planes"] * (n * n * 4 + 4 * m * m * 8)
+        if 2 * m == n:
+            lib_modes = lambda: torch.fft.fft2(v).transpose(-1, -2)  # noqa: E731
+            lib_inverse = lambda: torch.fft.ifft2(  # noqa: E731
+                g.transpose(-1, -2)).real * (s_ * n * n)
+        else:
+            idx = torch.cat([torch.arange(m), torch.arange(n - m, n)]).to(dev)
+            lib_modes = lambda: torch.fft.fft2(v)[..., idx[:, None], idx].transpose(  # noqa: E731
+                -1, -2)
+
+            def lib_inverse():
+                full = g.new_zeros(*g.shape[:2], n, n)
+                full[..., idx[:, None], idx] = g.transpose(-1, -2)
+                return torch.fft.ifft2(full).real * (s_ * n * n)
+        return {"dft2d_modes": (lambda: sc.modes(v, c), lambda: sc._modes_plain(v, c),
+                                lib_modes, flops, nbytes),
+                "dft2d_inverse": (lambda: sc.inverse(g, s_, c),
+                                  lambda: sc._inverse_plain(g, s_, c), lib_inverse,
+                                  flops, nbytes)}
 
     def ffn_case(b, width, act):
         """Rows and weights of one PointwiseFFN (width -> 4 width -> width) at
@@ -444,28 +488,66 @@ def main() -> int:
           f"largest err / max |plain| of p, m, v: "
           + ", ".join(f"{k} {v[0]:.3e}" for k, v in adam_err.items())
           + f" (tol {ADAM_TOL})", flush=True)
-    # the kernels line takes main path 3's shapes: the sweep's leaves
-    results["adam_step"] = dict(max_abs_err=adam_err["sweep"][1])
-    # and against torch.optim.Adam from zero moments, on the same gradients
-    worst = 0.0
-    for shape in leaf_shapes["recipe"][:8] + leaf_shapes["sweep"][:8] + [(4097,)]:
-        p = adam_state(shape)[0]
-        q = torch.nn.Parameter(p.clone())
-        opt = torch.optim.Adam([q], lr=hyper["lr"])
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
+    # the multi-tensor Adam: each SFNO's 52 leaves in one launch a step, odd
+    # sizes and 1,024,000 floats (aligned and offset-1) in one list, and 104
+    # leaves in two launches a step, through the table main path 3 keeps
+    groups = {"recipe": [(sh, 0) for sh in leaf_shapes["recipe"]],
+              "sweep": [(sh, 0) for sh in leaf_shapes["sweep"]],
+              "odd": [((n,), off) for n in (1, 3, 10, 4097, 1_024_000) for off in (0, 1)],
+              "104 leaves": [(sh, 0) for sh in leaf_shapes["recipe"] + leaf_shapes["sweep"]]}
+    leaves_err = {}
+    for tag, specs in groups.items():
+        state = [adam_state(sh, off) for sh, off in specs]
+        ref = [[t.clone() for t in (p, m, v)] for p, _, m, v in state]
+        ps, gs, ms_, vs = (list(ts) for ts in zip(*state))
+        table = adam_ops.AdamLeaves(ps, ms_, vs)
+        adam_ops.reset_launch_counts()
         for step in (1, 2, 3):
-            g = torch.randn(shape, device=dev, generator=gen)
-            adam_ops.adam_step(p, g, m, v, step=step, **hyper)
+            table.step(gs, step=step, **hyper)
+            for (p, m, v), g in zip(ref, gs):
+                adam_ops._adam_plain(p, g, m, v, step=step, **hyper)
+        torch.cuda.synchronize()
+        want = {"adam": 3 * -(-len(specs) // adam_ops.MAX_LEAVES),
+                "adam_leaves": 3 * len(specs)}
+        _require(adam_ops.LAUNCHES == want, f"multi-tensor Adam launches on {tag}: "
+                 f"{adam_ops.LAUNCHES}, expected {want}")
+        leaves_err[tag] = (0.0, 0.0)
+        for (p, _, m, v), r_ in zip(state, ref):
+            for name, a, b in zip("pmv", (p, m, v), r_):
+                max_abs, scale = max_err(a, b)
+                _require(max_abs <= ADAM_TOL * scale,
+                         f"multi-tensor Adam {name} vs plain on {tag}")
+                leaves_err[tag] = max(leaves_err[tag], (max_abs / scale, max_abs))
+    print("kernel adam_step_leaves: 3 steps, one launch a step a group of "
+          f"{adam_ops.MAX_LEAVES} leaves (counted), largest err / max |plain| of p, m, v: "
+          + ", ".join(f"{k} {v[0]:.3e}" for k, v in leaves_err.items())
+          + f" (tol {ADAM_TOL})", flush=True)
+    # the kernels line takes main path 3's shapes: the sweep's leaves
+    results["adam_step"] = dict(max_abs_err=leaves_err["sweep"][1])
+    # and against torch.optim.Adam from zero moments, on the same gradients
+    shapes17 = leaf_shapes["recipe"][:8] + leaf_shapes["sweep"][:8] + [(4097,)]
+    ps = [adam_state(sh)[0] for sh in shapes17]
+    qs = [torch.nn.Parameter(p.clone()) for p in ps]
+    opt = torch.optim.Adam(qs, lr=hyper["lr"])
+    ms_, vs = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]
+    for step in (1, 2, 3):
+        gs = [torch.randn(sh, device=dev, generator=gen) for sh in shapes17]
+        adam_ops.adam_step_leaves(ps, gs, ms_, vs, step=step, **hyper)
+        for q, g in zip(qs, gs):
             q.grad = g
-            opt.step()
+        opt.step()
+    worst = 0.0
+    for p, m, v, q in zip(ps, ms_, vs, qs):
         for name, a, b in (("p", p, q.detach()), ("m", m, opt.state[q]["exp_avg"]),
                            ("v", v, opt.state[q]["exp_avg_sq"])):
             max_abs, scale = max_err(a, b)
             _require(max_abs <= ADAM_TOL * scale,
-                     f"adam_step {name} vs torch.optim.Adam on {shape}")
+                     f"adam_step_leaves {name} vs torch.optim.Adam on {tuple(p.shape)}")
             worst = max(worst, max_abs / scale)
-    print(f"reference: adam_step vs torch.optim.Adam, 3 steps on 17 leaves, largest "
-          f"err / max |reference| {worst:.3e} (tol {ADAM_TOL})", flush=True)
+    print(f"reference: adam_step_leaves vs torch.optim.Adam, 3 steps on 17 leaves, "
+          f"largest err / max |reference| {worst:.3e} (tol {ADAM_TOL})", flush=True)
+    # free the lists, so that the train steps' peak memory counts none of them
+    del state, ref, ps, gs, ms_, vs, table, qs, opt
 
     # -- 6. main path 2: SFNO training at the McWilliams recipe -------------
     # the CLI's output paths are read when its modules are imported
@@ -500,12 +582,11 @@ def main() -> int:
         want = train_steps * per_step[key] + val_batches * per_eval[key]
         _require(train_launches[key] == want,
                  f"{key} launched {train_launches[key]} times, expected {want}")
+    _require(train_launches["modes_fused"] == train_launches["modes"],
+             f"{train_launches['modes_fused']} of {train_launches['modes']} modes "
+             "launches took the fused kernel")
 
     # -- 7. timings -----------------------------------------------------------
-    # the DFT pair's floor counts an FFT's operations (sc.flops), not the
-    # dense contraction the kernels do: at 2m = n it is bound by bytes
-    dft_flops = sc.flops(planes, rn, rn, 2 * rm, 2 * rm)
-    dft_bytes = planes * rn * rn * 4 + planes * 4 * rm * rm * 8
     def ffn_timed(case, bf16: bool):
         """(kernel, plain version, no library call, flops, bytes) of one case;
         bf16 rows halve the rows' bytes, the weights and the operations stay."""
@@ -522,12 +603,25 @@ def main() -> int:
                              fw[2], fw[3])
 
     def adam_bench(model) -> dict:
-        """One Adam step over all leaves of ``model``: the kernel (one launch
-        a leaf), its plain version, and ``torch.optim.Adam`` fused and foreach
-        on the same leaves."""
+        """One Adam step over all leaves of ``model``: the kernel through the
+        table main path 3 keeps (one launch), through ``adam_step_leaves``
+        (every tensor checked on every call) and leaf by leaf (``adam_step``,
+        one launch a leaf); its plain version; ``torch.optim.Adam`` fused and
+        foreach on the same leaves; the kernel's device time (profiler) and
+        the host time of a step through the table and through the function."""
+        from torch.profiler import ProfilerActivity, profile
+
         state = [adam_state(tuple(p.shape)) for p in model.parameters()]
-        numel = sum(p.numel() for p, *_ in state)
+        ps, gs, ms_, vs = (list(ts) for ts in zip(*state))
+        numel = sum(p.numel() for p in ps)
+        table = adam_ops.AdamLeaves(ps, ms_, vs)
         counter = iter(range(1, 1 << 30))
+
+        def table_step():
+            table.step(gs, step=next(counter), **hyper)
+
+        def leaves_fn():
+            adam_ops.adam_step_leaves(ps, gs, ms_, vs, step=next(counter), **hyper)
 
         def run(fn):
             step = next(counter)
@@ -535,25 +629,47 @@ def main() -> int:
                 fn(p, g, m, v, step=step, **hyper)
 
         def library(**kw):
-            qs = [torch.nn.Parameter(p.clone()) for p, *_ in state]
-            for q, (_, g, _, _) in zip(qs, state):
+            qs = [torch.nn.Parameter(p.clone()) for p in ps]
+            for q, g in zip(qs, gs):
                 q.grad = g
             return torch.optim.Adam(qs, lr=hyper["lr"], **kw).step
 
+        def host_ms(fn, calls=200) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            host = 1e3 * (time.perf_counter() - t0) / calls
+            torch.cuda.synchronize()
+            return host
+
         row = {"leaves": len(state), "n_params": numel,
-               "ms": cuda_ms(lambda: run(adam_ops.adam_step), 20, 5),
+               "ms": cuda_ms(table_step, 20, 5),
+               "leaves_fn_ms": cuda_ms(leaves_fn, 20, 5),
+               "per_leaf_ms": cuda_ms(lambda: run(adam_ops.adam_step), 20, 5),
                "plain_ms": cuda_ms(lambda: run(adam_ops._adam_plain), 20, 5),
                "library_ms": cuda_ms(library(fused=True), 20, 5),
-               "library_foreach_ms": cuda_ms(library(foreach=True), 20, 5)}
+               "library_foreach_ms": cuda_ms(library(foreach=True), 20, 5),
+               "host_ms": host_ms(table_step), "host_leaves_fn_ms": host_ms(leaves_fn)}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                table_step()
+            torch.cuda.synchronize()
+        row["device_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
+                               if "adam_multi_kernel" in e.key) / 1e3 / 10
         row.update(_bound(10 * numel, adam_ops.BYTES_PER_ELEMENT * numel))
         return row
 
     adam_rows = {"sweep": adam_bench(sweep_sfno), "recipe": adam_bench(recipe_model)}
     for tag, r in adam_rows.items():
-        print(f"time adam_step over the {r['leaves']} leaves of the {tag}'s SFNO "
-              f"({r['n_params']} parameters): {r['ms']:.4f} ms/step, plain "
-              f"{r['plain_ms']:.4f}, torch.optim.Adam fused {r['library_ms']:.4f}, "
-              f"foreach {r['library_foreach_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
+        print(f"time adam over the {r['leaves']} leaves of the {tag}'s SFNO "
+              f"({r['n_params']} parameters), ms/step: table {r['ms']:.4f} (kernel "
+              f"{r['device_ms']:.4f} on the device, host {r['host_ms']:.4f}), "
+              f"adam_step_leaves {r['leaves_fn_ms']:.4f} (host "
+              f"{r['host_leaves_fn_ms']:.4f}), leaf by leaf {r['per_leaf_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}, torch.optim.Adam fused {r['library_ms']:.4f}, "
+              f"foreach {r['library_foreach_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})", flush=True)
     # the kernels line takes the main path's shapes: the sweep's 52 leaves
     results["adam_step"].update(
@@ -562,17 +678,23 @@ def main() -> int:
     # name: (kernel, plain version, library call or None, flops, bytes)
     timed = {name: (kern, plain, None, flops, nbytes)
              for name, (kern, plain, flops, nbytes) in kernels.items()}
+    # the DFT pair at the recipe's shape (main path 2) and the sweep's (main
+    # path 3); its floor counts an FFT's operations (sc.flops), not the dense
+    # contraction the kernels do: at 2m = n it is bound by bytes
+    for key, case in dft_cases.items():
+        timed.update({name + key: t for name, t in dft_timed(case).items()})
     timed.update({
-        "dft2d_modes": (lambda: sc.modes(modes_in, recipe_c),
-                        lambda: sc._modes_plain(modes_in, recipe_c), fft_modes,
-                        dft_flops, dft_bytes),
-        "dft2d_inverse": (lambda: sc.inverse(inverse_in, recipe_scale, recipe_c),
-                          lambda: sc._inverse_plain(inverse_in, recipe_scale, recipe_c),
-                          fft_inverse, dft_flops, dft_bytes),
         # each entry at the shape of the main path whose launches it reports
         "pointwise_ffn": ffn_timed(ffn_recipe, False),
         "pointwise_ffn_bf16": ffn_timed(ffn_sweep, True),
     })
+    # dft2d_modes on the two-pass route it had before the fused kernel
+    modes_two_pass = {}
+    for key, case in dft_cases.items():
+        modes_two_pass["dft2d_modes" + key] = cuda_ms(
+            lambda: sc._launch_modes_two_pass(case["v"], case["c"]), 20)
+        print(f"time dft2d_modes{key} on two passes: "
+              f"{modes_two_pass['dft2d_modes' + key]:.4f} ms", flush=True)
     # the other two instances, for the table only
     ffn_other = {}
     for name, case, bf16 in (("recipe_bf16", ffn_recipe, True),
@@ -647,8 +769,9 @@ def main() -> int:
                       key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
         ours = sum(e.self_device_time_total for e in kern
-                   if any(k in e.key for k in ("bgemm_kernel", "ffn_kernel",
-                                               "adam_kernel"))) / 1e3 / steps
+                   if any(k in e.key for k in ("bgemm_kernel", "modes_fused_kernel",
+                                               "ffn_kernel", "adam_multi_kernel"))
+                   ) / 1e3 / steps
         top = [(e.key[:90], e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in kern[:12]]
         print(f"profile {route}: device busy {busy_ms:.3f} of {wall_ms:.3f} ms/step "
@@ -709,6 +832,8 @@ def main() -> int:
             _require(counts[key] == iters * want,
                      f"{key}: {counts[key]} launches in {iters} {route} steps, "
                      f"expected {iters * want}")
+        _require(counts["modes_fused"] == counts["modes"],
+                 f"every modes launch fused on the {route} route")
         row = {"route": route, "ms_per_step": ms, "samples_per_s": rb / (ms * 1e-3),
                "launches_per_step": {k: v / iters for k, v in counts.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -766,11 +891,15 @@ def main() -> int:
             c = r["check"]  # opt_layout raises when the check fails
             _require(abs(c["loss"] - c["base_loss"]) <= 2e-5 * abs(c["base_loss"]),
                      f"sweep --check {v}")
-        want = LEAVES * by["fused_adam"]["steps"]
-        _require(counts["adam"] == want, f"adam launched {counts['adam']} times, "
-                 f"expected {LEAVES} leaves x {by['fused_adam']['steps']} steps")
+        steps_ = by["fused_adam"]["steps"]
+        _require(counts["adam"] == steps_ and counts["adam_leaves"] == LEAVES * steps_,
+                 f"adam launched {counts['adam']} times over {counts['adam_leaves']} "
+                 f"leaves, expected once a step over {LEAVES} leaves, {steps_} steps")
         for key in ("modes", "inverse", "ffn"):
             _require(counts[key] > 0, f"{key} did not launch in the sweep ({tag})")
+        _require(counts["modes_fused"] == counts["modes"],
+                 f"{counts['modes_fused']} of {counts['modes']} modes launches took "
+                 f"the fused kernel ({tag})")
         return rows_, counts
 
     # where the sweep's step spends its time: the device's busy share
@@ -817,20 +946,26 @@ def main() -> int:
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
                "spectral_advect": ("spectral_step", "advect"),
                "spectral_forward_first": ("spectral_step", "forward_first"),
-               "dft2d_modes": ("spectral_conv", "modes"),
+               "dft2d_modes": ("spectral_conv", "modes_fused"),
                "dft2d_inverse": ("spectral_conv", "inverse"),
+               "dft2d_modes_sweep": ("spectral_conv", "modes_fused_sweep"),
+               "dft2d_inverse_sweep": ("spectral_conv", "inverse_sweep"),
                "pointwise_ffn": ("ffn", "ffn"),
                "pointwise_ffn_bf16": ("ffn", "ffn_bf16"),
                "adam_step": ("adam", "adam")}
     replaces = {"spectral_step": "tpu_cfd/ops/pallas/spectral_step.py:104",
                 "dft2d_modes": "tpu_cfd/models/pallas_conv.py:82",
                 "dft2d_inverse": "tpu_cfd/models/pallas_conv.py:104",
+                "dft2d_modes_sweep": "tpu_cfd/models/pallas_conv.py:82",
+                "dft2d_inverse_sweep": "tpu_cfd/models/pallas_conv.py:104",
                 "pointwise_ffn": "tpu_cfd/ops/pallas/ffn.py:33",
                 "pointwise_ffn_bf16": "tpu_cfd/ops/pallas/ffn.py:33",
                 "adam_step": "scripts/opt_layout_r4.py:119"}
     shapes = {
         "spectral_step": f"main path 1: b{B} {N}^2 float32",
         "spectral_conv": f"main path 2: b{rb} {rt * rw} planes {rn}^2 m{rm} float32",
+        **{name: f"main path 3: b{SWEEP_BATCH} {rt * sw} planes {rn}^2 m{sm} float32"
+           for name in ("dft2d_modes_sweep", "dft2d_inverse_sweep")},
         "pointwise_ffn": f"main path 2: {ffn_recipe['rows']} rows {rw}->{4 * rw}->{rw} "
                          "GELU float32",
         "pointwise_ffn_bf16": f"main path 3: {ffn_sweep['rows']} rows {sw}->{4 * sw}->{sw} "
@@ -840,6 +975,8 @@ def main() -> int:
     launches = {**{("spectral_step", k): v for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v for k, v in train_launches.items()
                    if k in sc.LAUNCHES},
+                ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"],
+                ("spectral_conv", "inverse_sweep"): sweep_launches["inverse"],
                 ("ffn", "ffn"): train_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
@@ -853,7 +990,8 @@ def main() -> int:
          "shape": shapes.get(name, shapes.get(src))}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
-        "adam_steps": adam_rows, "ffn_other_instances": ffn_other, "sweep_steps": sweep_rows,
+        "adam_steps": adam_rows, "modes_two_pass_ms": modes_two_pass,
+        "ffn_other_instances": ffn_other, "sweep_steps": sweep_rows,
         "sweep_profile": sweep_profile, "fno3d_step": fno_row,
         "fno3d_history": fhist,
         "rollouts": rollouts, "train_steps": train_rows,

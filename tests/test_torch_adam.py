@@ -6,8 +6,11 @@ through its ``apply_leaf`` and through ``adam_step`` (on the CPU: the plain
 PyTorch version of the kernel's arithmetic) for three steps, and through
 ``optax.adam`` and ``torch.optim.Adam``. Tolerance: each of ``p, m, v`` within
 1e-6 of the reference's largest entry (fp32 elementwise arithmetic in another
-order). The CUDA kernel runs only on the card:
-tests/test_torch_cuda_kernels.py holds it against the plain version there.
+order). The multi-tensor ``adam_step_leaves`` and ``AdamLeaves`` go through the same
+comparison leaf by leaf on the 52 leaf shapes of a narrow SFNO, and the launch
+plan (groups of at most ``MAX_LEAVES`` leaves, chunk prefix) is checked on the
+CPU. The CUDA kernel runs only on the card: tests/test_torch_cuda_kernels.py
+holds it against the plain version there.
 """
 
 import importlib.util
@@ -19,6 +22,7 @@ import optax
 import pytest
 import torch
 
+from tpu_cfd_torch.models import SFNO
 from tpu_cfd_torch.ops.cuda import adam as tadam
 
 torch.set_num_threads(2)
@@ -148,3 +152,88 @@ def test_bytes_of_the_bound():
     # four streams read and three written, 4 B each: what chip_smoke.py's bound uses
     assert tadam.BYTES_PER_ELEMENT == 28
     assert tadam.BYTES_PER_ELEMENT * 16_469_791 == 461_154_148
+
+
+# the 52 leaf shapes of a narrow SFNO (4 spectral layers, width 4, modes 4/4/3)
+NARROW_SFNO_SHAPES = [tuple(p.shape) for p in SFNO(
+    modes_x=4, modes_y=4, modes_t=3, width=4, output_steps=4, latent_steps=4,
+).parameters()]
+
+
+@pytest.mark.parametrize("table", [False, True])  # adam_step_leaves, AdamLeaves
+def test_adam_step_leaves_matches_jax_pallas(table):
+    """All leaves of a narrow SFNO in one call a step, against the JAX kernel
+    leaf by leaf, over three steps."""
+    assert len(NARROW_SFNO_SHAPES) == 52
+    script = _load_script()
+    _, apply_leaf = script.fused_adam_pallas(LR, "merge2d", b1=B1, b2=B2, eps=EPS)
+    states = [_state(sh, seed=i) for i, sh in enumerate(NARROW_SFNO_SHAPES)]
+    want = []
+    for p, m, v, grads in states:
+        jp, jm, jv = (jnp.asarray(a) for a in (p, m, v))
+        for t, g in enumerate(grads, start=1):
+            corr = jnp.asarray([1.0 / (1.0 - B1 ** t), 1.0 / (1.0 - B2 ** t)],
+                               jnp.float32)
+            jp, jm, jv = apply_leaf(corr, jp, jm, jv, jnp.asarray(g))
+        want.append((jp, jm, jv))
+    ps, ms, vs = ([torch.from_numpy(st[k].copy()) for st in states] for k in range(3))
+    kept = tadam.AdamLeaves(ps, ms, vs)
+    for t in range(STEPS):
+        gs = [torch.from_numpy(st[3][t]) for st in states]
+        if table:
+            kept.step(gs, lr=LR, b1=B1, b2=B2, eps=EPS, step=t + 1)
+        else:
+            tadam.adam_step_leaves(ps, gs, ms, vs, lr=LR, b1=B1, b2=B2, eps=EPS,
+                                   step=t + 1)
+    for i, (got, ref) in enumerate(zip(zip(ps, ms, vs), want)):
+        for name, a, b in zip("pmv", got, ref):
+            assert _rel_err(a.numpy(), b) < 1e-6, (i, NARROW_SFNO_SHAPES[i], name)
+
+
+@pytest.mark.parametrize("leaves", [1, 64, 65, 130])
+def test_plan_launches_groups_and_chunk_prefix(leaves):
+    rng = np.random.default_rng(leaves)
+    numels = [int(n) for n in rng.integers(1, 3 * tadam.CHUNK, size=leaves)]
+    groups = tadam.plan_launches(numels)
+    assert len(groups) == -(-leaves // tadam.MAX_LEAVES)
+    assert [i for idx, _, _ in groups for i in idx] == list(range(leaves))
+    for idx, first, chunks in groups:
+        assert 1 <= len(idx) <= tadam.MAX_LEAVES and len(first) == len(idx)
+        # leaf k of the group owns chunks [first[k], first[k + 1]), the last
+        # one up to the group's total
+        ends = first[1:] + [chunks]
+        assert first[0] == 0
+        for i, a, b in zip(idx, first, ends):
+            assert b - a == -(-numels[i] // tadam.CHUNK)
+
+
+def test_plan_launches_skips_empty_leaves():
+    numels = [0, 5, 0, 0, tadam.CHUNK, tadam.CHUNK + 1] + [1] * 70 + [0]
+    groups = tadam.plan_launches(numels)
+    idx = [i for g in groups for i in g[0]]
+    assert idx == [1, 4, 5] + list(range(6, 76))
+    assert [len(g[0]) for g in groups] == [64, 9]
+    assert groups[0][1][:4] == [0, 1, 2, 4] and groups[1][1][0] == 0
+    assert tadam.plan_launches([0, 0]) == []
+
+
+def test_adam_leaves_checks_its_inputs():
+    ok = lambda: torch.zeros(4, 6)  # noqa: E731
+    with pytest.raises(ValueError, match="2 params, 1 ms and 2 vs"):
+        tadam.AdamLeaves([ok(), ok()], [ok()], [ok(), ok()])
+    with pytest.raises(ValueError, match=r"ms\[1\] has shape"):
+        tadam.AdamLeaves([ok(), ok()], [ok(), torch.zeros(3)], [ok(), ok()])
+    with pytest.raises(ValueError, match=r"vs\[0\] must be contiguous"):
+        tadam.AdamLeaves([ok()], [ok()], [torch.zeros(6, 4).t()])
+    kept = tadam.AdamLeaves([ok(), ok()], [ok(), ok()], [ok(), ok()])
+    with pytest.raises(ValueError, match="1 grads for 2 leaves"):
+        kept.step([ok()], lr=LR, step=1)
+    with pytest.raises(ValueError, match=r"grads\[1\] must be float32 on cpu"):
+        kept.step([ok(), ok().double()], lr=LR, step=1)
+    with pytest.raises(ValueError, match="counts from 1"):
+        kept.step([ok(), ok()], lr=LR, step=0)
+    meta = lambda: torch.zeros(4, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="no Adam kernel"):
+        tadam.adam_step_leaves([meta()], [meta()], [meta()], [meta()], lr=LR, step=1)
+    # no leaves: nothing to do
+    tadam.adam_step_leaves([], [], [], [], lr=LR, step=1)

@@ -7,7 +7,8 @@ within 1e-5 of the plain version's largest entry (one launch, fp32 sums in
 another order); gradients of the whole SFNO within 1e-4 of each leaf's; the
 FFN with bfloat16 rows within one bfloat16 spacing (2^-7) of the largest
 entry, as kernel and plain version each round a float32 sum once; ``adam_step``
-within 1e-6 of the largest entry of each of p, m, v over three steps.
+and the multi-tensor ``adam_step_leaves`` within 1e-6 of the largest entry of
+each of p, m, v over three steps.
 """
 
 import contextlib
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from tpu_cfd_torch import models as tm
-from tpu_cfd_torch.models.fused_conv import make_dft2d_ops
+from tpu_cfd_torch.models.fused_conv import _dft2d_constants, make_dft2d_ops
 from tpu_cfd_torch.ops.cuda import adam as tadam
 from tpu_cfd_torch.ops.cuda import ffn as tffn
 from tpu_cfd_torch.ops.cuda import spectral_conv as sc
@@ -66,9 +67,43 @@ def test_dft_kernels_match_plain(dev, n):
         outs.append(torch.cat([torch.view_as_real(g).flatten(), y.flatten()]))
         grads.append(x.grad)
     torch.cuda.synchronize()
-    assert sc.LAUNCHES == {"modes": 2, "inverse": 2}
+    # each shape fits in shared memory, so both modes launches are fused
+    assert sc.fused_modes_layout(n, n, 16, 16) is not None
+    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2, "inverse": 2}
     assert _rel_err(outs[0], outs[1]) < 1e-5
     assert _rel_err(grads[0], grads[1]) < 1e-5
+
+
+# (n, m, b, planes): small, the recipe's 64^2 at m = 32, the sweep's at m = 12,
+# and 96^2 at m = 20, just over the shared-memory budget: two passes
+@pytest.mark.parametrize("n,m,b,planes,fused", [
+    (16, 8, 2, 3, True), (64, 32, 2, 50, True), (64, 12, 4, 200, True),
+    (96, 20, 2, 5, False)])
+def test_modes_route_matches_plain(dev, n, m, b, planes, fused):
+    """modes forward, and as inverse's backward, vs plain, on the route the
+    shape picks."""
+    assert (sc.fused_modes_layout(n, n, 2 * m, 2 * m) is not None) == fused
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _, inverse = make_dft2d_ops(n, n, m, m, dev)
+    c = _dft2d_constants(n, n, m, m, str(dev), "complex64")
+    v = torch.randn(b, planes, n, n, device=dev, generator=gen)
+    g = torch.randn(b, planes, 2 * m, 2 * m, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    sc.reset_launch_counts()
+    got = sc.modes(v, c)
+    x = g.clone().requires_grad_(True)
+    inverse(x, 0.5 / (n * n)).backward(v)   # backward: modes(0.5/n^2 v)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2 * fused, "inverse": 1}
+    assert _rel_err(got, sc._modes_plain(v, c)) < 1e-5
+    with _plain_versions():
+        y = g.clone().requires_grad_(True)
+        inverse(y, 0.5 / (n * n)).backward(v)
+    assert _rel_err(x.grad, y.grad) < 1e-5
+    # an offset view (not 16-byte aligned) takes the same route
+    flat = torch.randn(b * planes * n * n + 1, device=dev, generator=gen)
+    w = flat[1:].view(b, planes, n, n)
+    assert _rel_err(sc.modes(w, c), sc._modes_plain(w, c)) < 1e-5
 
 
 @pytest.mark.parametrize("act", sorted(tffn.ACTIVATIONS))
@@ -118,6 +153,54 @@ def test_adam_kernel_matches_plain(dev, n, offset):
     assert tadam.LAUNCHES["adam"] == 3
     for name, got, want in zip("pmv", (p, m, v), ref):
         assert _rel_err(got, want) < 1e-6, name
+
+
+def _adam_case(dev, sizes_offsets, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = []
+    for n, off in sizes_offsets:
+        p, g, m, v = (torch.randn(n + off, device=dev, generator=gen)[off:]
+                      for _ in range(4))
+        state.append((p, g, m, v.square_()))
+    return state
+
+
+@pytest.mark.parametrize("table", [False, True])  # adam_step_leaves, AdamLeaves
+@pytest.mark.parametrize("leaves", [8, 130])       # one launch; three
+def test_adam_leaves_kernel_matches_plain(dev, leaves, table):
+    """Mixed sizes (empty, odd, a multiple of the chunk, 1,024,000), aligned
+    and offset-1 views, in one list; exact launch and leaf counts."""
+    sizes = [0, 1, 3, 10, 4097, 16384, 1_024_000, 400]
+    cases = [(sizes[i % len(sizes)], i % 2) for i in range(leaves)]
+    state = _adam_case(dev, cases, leaves)
+    ref = [[t.clone() for t in (p, m, v)] for p, _, m, v in state]
+    ps, gs, ms, vs = (list(ts) for ts in zip(*state))
+    kept = tadam.AdamLeaves(ps, ms, vs) if table else None
+    tadam.reset_launch_counts()
+    for step in (1, 2, 3):
+        if table:
+            kept.step(gs, lr=1e-3, step=step)
+        else:
+            tadam.adam_step_leaves(ps, gs, ms, vs, lr=1e-3, step=step)
+        for (p, m, v), g in zip(ref, gs):
+            tadam._adam_plain(p, g, m, v, 1e-3, 0.9, 0.999, 1e-8, step)
+    torch.cuda.synchronize()
+    nonempty = sum(n > 0 for n, _ in cases)
+    assert tadam.LAUNCHES == {"adam": 3 * -(-nonempty // tadam.MAX_LEAVES),
+                              "adam_leaves": 3 * nonempty}
+    for i, ((p, _, m, v), want) in enumerate(zip(state, ref)):
+        for name, got, w in zip("pmv", (p, m, v), want):
+            if w.numel():
+                assert _rel_err(got, w) < 1e-6, (i, name)
+
+
+def test_adam_leaves_refuse_moved_storage(dev):
+    p, g, m, v = _adam_case(dev, [(100, 0)], 7)[0]
+    q = torch.nn.Parameter(p.clone())
+    leaves = tadam.AdamLeaves([q], [m], [v])
+    q.data = p.clone()  # what model.to() does
+    with pytest.raises(ValueError, match="storage moved"):
+        leaves.step([g], lr=1e-3, step=1)
 
 
 def test_adam_kernel_matches_torch_optim(dev):

@@ -85,6 +85,34 @@ def test_fused_adam_step_matches_the_jax_script():
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
 
+def test_fused_adam_updates_all_leaves_in_one_call_a_step(monkeypatch):
+    """The ``fused_adam`` step checks and plans its leaves once and then
+    makes one multi-tensor call a step over all 52 of them."""
+    from tpu_cfd_torch.ops.cuda import adam as tadam
+
+    built, calls = [], []
+    init, step_ = tadam.AdamLeaves.__init__, tadam.AdamLeaves.step
+
+    def counting_init(self, params, ms, vs):
+        built.append(len(params))
+        init(self, params, ms, vs)
+
+    def counting_step(self, grads, **kw):
+        calls.append((len(grads), kw["step"]))
+        step_(self, grads, **kw)
+
+    monkeypatch.setattr(tadam.AdamLeaves, "__init__", counting_init)
+    monkeypatch.setattr(tadam.AdamLeaves, "step", counting_step)
+    model = tm.SFNO(modes_x=4, modes_y=4, modes_t=3, width=8, output_steps=8,
+                    latent_steps=4)
+    step = opt_layout.build_step("fused_adam", model, tlosses.SobolevLoss(
+        n_grid=16, norm_order=0, relative=True), 8)
+    x, y = torch.randn(2, 16, 16, 4), torch.randn(2, 16, 16, 8)
+    for _ in range(3):
+        step(x, y)
+    assert built == [52] and calls == [(52, 1), (52, 2), (52, 3)]
+
+
 def test_gradients_reach_adam_step_contiguous():
     """``adam_step`` raises on a non-contiguous tensor: every leaf's gradient
     has its parameter's (contiguous) layout."""

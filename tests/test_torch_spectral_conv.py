@@ -143,3 +143,52 @@ def test_flops_at_the_recipe():
     assert sc.flops(64 * 100, 64, 64, 64, 64) == 786_432_000
     # few modes: the dense truncated DFT is the cheaper one
     assert sc.flops(1, 64, 64, 2, 2) == 4 * 64 * 64 * 2 + 8 * 2 * 64 * 2
+
+
+def test_fused_modes_route_by_shape():
+    """The fused dft2d_modes kernel takes the recipe's (64^2, m = 32) and the
+    optimizer sweep's (64^2, m = 12) shapes and fits one block of 227 KB of
+    shared memory; 256^2 goes to the two-pass route. The tensor cores compute
+    the my = my2 / 2 rows y >= 0 (a real input mirrors the rest), on as many
+    planes at once as give 8 tiles; strides are 4, 8, 16 and 8 mod 32 words
+    (conflict-free fragment loads)."""
+    ints, nbytes = sc.fused_modes_layout(64, 64, 64, 64)
+    assert nbytes == 218_112 <= sc.FUSED_SMEM_LIMIT
+    assert ints == (64, 64, 64, 64, 2, 64, 64, 64, 32, 128, 64, 68, 72, 80, 136)
+    sweep = sc.fused_modes_layout(64, 64, 24, 24)
+    assert sweep is not None and sweep[0][4] == 3 and sweep[1] == 224_256
+    assert sc.fused_modes_layout(256, 256, 64, 64) is None
+    assert sc.fused_modes_layout(64, 62, 64, 64) is None   # rows not 16-byte pieces
+    for shape in ((64, 64, 64, 64), (64, 64, 24, 24), (16, 12, 6, 8), (96, 96, 32, 32)):
+        ints, nbytes = sc.fused_modes_layout(*shape)
+        nx, ny, my2, mx2, pp, k1, m1, n1, m2, n2, xr, sv, sy, sh, sx = ints
+        my = my2 // 2
+        assert (sv % 32, sy % 32, sh % 32, sx % 32) == (4, 8, 16, 8)
+        assert k1 >= ny and k1 % 8 == 0 and m1 >= nx and m1 % 32 == 0
+        assert n1 >= 2 * my and n2 >= 2 * mx2 and n1 % 32 == n2 % 32 == 0
+        assert m2 >= my and m2 % 32 == 0 and xr >= nx and xr % 4 == 0
+        assert sv >= k1 and sy >= n1 and sh >= max(n1 + 2, 2 * m2) and sx >= n2
+        size = lambda pp: 4 * (2 * pp * m1 * sv + 2 * k1 * sy + 2 * xr * sx  # noqa: E731
+                               + pp * m1 * sh + 2 * ny + 2 * nx)
+        assert nbytes == size(pp)
+        # 8 tiles of 32 x 32 for the x-contraction, unless one plane more
+        # would not fit (the sweep's 3 planes, 96^2's 1)
+        if pp * (m2 // 32) * (n2 // 32) < 8:
+            assert size(pp + 1) > sc.FUSED_SMEM_LIMIT
+    # just over the budget at 96^2: m = 16 fits, m = 20 does not
+    assert sc.fused_modes_layout(96, 96, 32, 32)[1] <= sc.FUSED_SMEM_LIMIT
+    assert sc.fused_modes_layout(96, 96, 40, 40) is None
+
+
+@pytest.mark.parametrize("n,m,route", [(64, 32, "fused"), (64, 12, "fused"),
+                                       (256, 32, "two_pass")])
+def test_launch_modes_takes_the_route_of_its_shape(monkeypatch, n, m, route):
+    taken = []
+    monkeypatch.setattr(sc, "_launch_modes_fused",
+                        lambda v, c, layout: taken.append("fused"))
+    monkeypatch.setattr(sc, "_launch_modes_two_pass",
+                        lambda v, c: taken.append("two_pass"))
+    c = {"FyT": torch.zeros(n, 2 * m, dtype=torch.complex64),
+         "FxT": torch.zeros(n, 2 * m, dtype=torch.complex64)}
+    sc._launch_modes(torch.zeros(1, 2, n, n), c)
+    assert taken == [route]

@@ -8,8 +8,13 @@ Replaces the TPU kernels of ``tpu_cfd/models/pallas_conv.py::make_dft2d_ops``
 - ``inverse``: complex ``(b, P, 2my, 2mx)`` -> ``scale · Re(Gx · g · Gyᵀ)``
   real ``(b, P, nx, ny)``.
 
-Each is two passes of one batched complex GEMM in ``csrc/spectral_conv.cu``
-(see its header for the design and the bound). The transform matrices come
+``modes`` is one fused kernel on the tensor cores (3xTF32 ``mma.sync``,
+the half of the modes that a real input does not mirror) where a plane, its
+intermediate and both transform matrices fit in one SM's shared memory
+(``fused_modes_layout``: 64² at m = 32 does, 256² does not), and
+otherwise, like ``inverse``, two passes of one batched complex GEMM in
+``csrc/spectral_conv.cu`` (see its header for the designs and the bound).
+The shape alone picks the route. The transform matrices come
 in a dict ``c`` of ``FyT (ny, 2my)``, ``FxT (nx, 2mx)``, ``GxT (2mx, nx)``
 and ``GyT (2my, ny)`` (``tpu_cfd_torch.models.fused_conv`` builds it).
 
@@ -33,8 +38,12 @@ import torch
 
 Tensor = torch.Tensor
 
-# Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"modes": 0, "inverse": 0}
+# Kernel launches per wrapper since the last reset_launch_counts();
+# "modes_fused" counts the "modes" launches that took the fused kernel.
+LAUNCHES = {"modes": 0, "modes_fused": 0, "inverse": 0}
+
+# shared memory one block may use on an H100 (227 KB)
+FUSED_SMEM_LIMIT = 232_448
 
 
 def reset_launch_counts() -> None:
@@ -58,6 +67,54 @@ def _inverse_plain(g: Tensor, scale: float, c: dict) -> Tensor:
     return scale * (q.real @ gy.real - q.imag @ gy.imag)
 
 
+# ---------------------------------------------------------- fused route ----
+
+def _up(k: int, q: int) -> int:
+    return -(-k // q) * q
+
+
+def _stride(cols: int, r: int) -> int:
+    """The least row stride >= ``cols`` words that is ``r`` mod 32."""
+    return cols + (r - cols) % 32
+
+
+def fused_modes_layout(nx: int, ny: int, my2: int, mx2: int):
+    """The fused ``modes`` kernel's shared-memory layout for this shape, as
+    ``(15 ints in the order of csrc/spectral_conv.cu's Layout, bytes)``, or
+    ``None`` where the shape takes the two-pass route: rows of v not a whole
+    number of 16-byte copies, or more than ``FUSED_SMEM_LIMIT`` bytes even
+    for one plane at a time.
+
+    A real input's transform mirrors itself, so the tensor cores compute
+    H = v @ FyT for the ``my = my2 / 2`` modes y >= 0 and the ``my`` rows
+    y >= 0 of g. Shared memory holds two v buffers of ``pp`` planes
+    (m1 x sv each), the hi and lo TF32 parts of those ``my`` columns of FyT
+    viewed as floats (k1 x sy) and of FxT (xr x sx), H of each plane
+    (m1 x sh, its column n1 the mode y = -my), FyT's column of that mode and
+    FxT's column of the mode x = -mx.
+    The padding makes every tile whole; the strides are 4, 8 and 16 mod 32
+    words, which keeps the fragment loads free of bank conflicts. ``pp`` is
+    the fewest planes that give the 8 warps 8 tiles a contraction, as far as
+    they fit.
+    """
+    if ny % 4 or my2 % 2 or mx2 % 2:
+        return None
+    my = my2 // 2
+    k1, m1, n1 = _up(ny, 8), _up(nx, 32), _up(2 * my, 32)
+    m2, n2, xr = _up(my, 32), _up(2 * mx2, 32), _up(nx, 4)
+    sv, sy = _stride(k1, 4), _stride(n1, 8)
+    sh, sx = _stride(max(n1 + 2, 2 * m2), 16), _stride(n2, 8)
+    tiles = (m2 // 32) * (n2 // 32)
+    layout = None
+    for pp in range(1, max(1, -(-8 // tiles)) + 1):
+        nbytes = 4 * (2 * pp * m1 * sv + 2 * k1 * sy + 2 * xr * sx
+                      + pp * m1 * sh + 2 * ny + 2 * nx)
+        if nbytes > FUSED_SMEM_LIMIT:
+            break
+        layout = (nx, ny, my2, mx2, pp, k1, m1, n1, m2, n2, xr, sv, sy, sh, sx), nbytes
+    return layout
+
+
 # --------------------------------------------------------------- kernels ----
 
 @functools.lru_cache(maxsize=None)
@@ -67,8 +124,10 @@ def _lib():
     lib = _build.load("spectral_conv")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.dft2d_modes.argtypes = [P] * 5 + [L, I, I, I, I, P]
+    lib.dft2d_modes_fused.argtypes = [P] * 4 + [L, P, I, P]
     lib.dft2d_inverse.argtypes = [P] * 5 + [L, I, I, I, I, F, P]
-    lib.dft2d_modes.restype = lib.dft2d_inverse.restype = I
+    lib.dft2d_modes.restype = lib.dft2d_modes_fused.restype = I
+    lib.dft2d_inverse.restype = I
     return lib
 
 
@@ -91,19 +150,47 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_modes(v: Tensor, c: dict) -> Tensor:
+def _check_modes(v: Tensor, c: dict):
     b, P, nx, ny = v.shape
     my2, mx2 = c["FyT"].shape[1], c["FxT"].shape[1]
     _check(v, (b, P, nx, ny), torch.float32, v.device, "input")
     _check(c["FyT"], (ny, my2), torch.complex64, v.device, "FyT")
     _check(c["FxT"], (nx, mx2), torch.complex64, v.device, "FxT")
-    h = torch.empty((b, P, nx, my2), dtype=torch.complex64, device=v.device)
     g = torch.empty((b, P, my2, mx2), dtype=torch.complex64, device=v.device)
+    return b * P, nx, ny, my2, mx2, g
+
+
+def _launch_modes_two_pass(v: Tensor, c: dict) -> Tensor:
+    B, nx, ny, my2, mx2, g = _check_modes(v, c)
+    h = torch.empty((B, nx, my2), dtype=torch.complex64, device=v.device)
     _ok(_lib().dft2d_modes(v.data_ptr(), c["FyT"].data_ptr(), c["FxT"].data_ptr(),
-                           h.data_ptr(), g.data_ptr(), b * P, nx, ny, my2, mx2,
+                           h.data_ptr(), g.data_ptr(), B, nx, ny, my2, mx2,
                            _stream(v.device)), "dft2d_modes")
     LAUNCHES["modes"] += 1
     return g
+
+
+def _launch_modes_fused(v: Tensor, c: dict, layout) -> Tensor:
+    B, nx, ny, my2, mx2, g = _check_modes(v, c)
+    if v.data_ptr() % 16:  # the kernel copies rows of v in 16-byte pieces
+        v = v.clone()
+    ints, nbytes = layout
+    _ok(_lib().dft2d_modes_fused(v.data_ptr(), c["FyT"].data_ptr(),
+                                 c["FxT"].data_ptr(), g.data_ptr(), B,
+                                 (ctypes.c_int * len(ints))(*ints), nbytes,
+                                 _stream(v.device)), "dft2d_modes_fused")
+    LAUNCHES["modes"] += 1
+    LAUNCHES["modes_fused"] += 1
+    return g
+
+
+def _launch_modes(v: Tensor, c: dict) -> Tensor:
+    """The fused kernel where the shape fits in shared memory, else two passes."""
+    layout = fused_modes_layout(v.shape[-2], v.shape[-1], c["FyT"].shape[1],
+                                c["FxT"].shape[1])
+    if layout is None:
+        return _launch_modes_two_pass(v, c)
+    return _launch_modes_fused(v, c, layout)
 
 
 def _launch_inverse(g: Tensor, scale: float, c: dict) -> Tensor:

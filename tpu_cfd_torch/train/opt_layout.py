@@ -7,10 +7,10 @@ relative Sobolev loss of order 0). Two variants:
 - ``base``        the plain step: ``torch.optim.Adam``, the port's
                   counterpart of ``optax.adam``;
 - ``fused_adam``  the step keeps its own ``m``, ``v`` and step count and,
-                  after ``backward()``, updates each parameter leaf with one
+                  after ``backward()``, updates all parameter leaves with one
                   launch of the hand-written kernel
-                  (``tpu_cfd_torch.ops.cuda.adam.adam_step``): one pass that
-                  reads ``p, g, m, v`` and writes ``p, m, v``.
+                  (``tpu_cfd_torch.ops.cuda.adam.AdamLeaves``, built once): one
+                  pass that reads ``p, g, m, v`` and writes ``p, m, v``.
 
 The JAX script's ``merge2``, ``merge2d`` and ``packed`` variants reshape the
 optimizer's leaves so that a TPU's 128 lanes are filled. A CUDA kernel
@@ -43,7 +43,7 @@ import torch
 
 from tpu_cfd_torch.device import resolve_device
 from tpu_cfd_torch.models import SFNO, init_like_flax
-from tpu_cfd_torch.ops.cuda.adam import adam_step
+from tpu_cfd_torch.ops.cuda.adam import AdamLeaves
 from tpu_cfd_torch.train import losses
 
 Tensor = torch.Tensor
@@ -91,16 +91,16 @@ def build_step(variant: str, model: torch.nn.Module, loss_fn: Callable,
 
         return step
 
-    m = [torch.zeros_like(p) for p in params]
-    v = [torch.zeros_like(p) for p in params]
+    # the leaves and moments are checked and their launches planned once
+    leaves = AdamLeaves(params, [torch.zeros_like(p) for p in params],
+                        [torch.zeros_like(p) for p in params])
     count = 0  # on the host: the bias corrections cost no synchronisation
 
     def step(x: Tensor, y: Tensor) -> Tensor:
         nonlocal count
         loss = loss_and_grads(x, y)
         count += 1
-        for p, m_, v_ in zip(params, m, v):
-            adam_step(p.data, p.grad, m_, v_, lr=lr, step=count)
+        leaves.step([p.grad for p in params], lr=lr, step=count)
         return loss
 
     return step
