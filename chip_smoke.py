@@ -19,9 +19,9 @@ printing no result, when either is missing or any phase fails:
    main paths give them, the McWilliams recipe's and the optimizer sweep's:
    the DFT pair (``dft2d_modes``, ``dft2d_inverse``) forward and backward,
    where 2m = n (64², b=64), at 256² (b=2) and where 2m < n (m=12, 64², b=4,
-   200 planes), and at 64² against ``torch.fft`` too, with ``dft2d_modes``
-   on its fused tensor-core kernel at 64² and on two passes at 256² (checked
-   by count); ``pointwise_ffn`` forward (its
+   200 planes), and at 64² against ``torch.fft`` too, with both transforms
+   on their fused tensor-core kernels at 64² and on two passes at 256²
+   (checked by count); ``pointwise_ffn`` forward (its
    backward is plain PyTorch) at 10 → 40 → 10 with GELU and at 20 → 80 → 20
    with ReLU, each with float32 and with bfloat16 rows; the multi-tensor
    Adam over three steps on the 52 leaves of each SFNO in one launch a step,
@@ -32,10 +32,13 @@ printing no result, when either is missing or any phase fails:
    the McWilliams recipe (16,469,791 parameters, batch 64, 2 epochs) on
    that dataset, checks the losses, and checks from the launch counters
    that every SpectralConvS and PointwiseFFN ran through the kernels and
-   every ``dft2d_modes`` through the fused one;
-7. times every kernel beside its bound, its plain version and the library
-   call (the DFT pair at main path 3's m=12 too, and ``dft2d_modes`` on its
-   two-pass route beside the fused one), the rollouts, the SFNO train step
+   every ``dft2d_modes`` and ``dft2d_inverse`` through its fused one;
+7. times every kernel beside its bound (by bytes, or by operations at the
+   faster of FFMA and 3xTF32 on the tensor cores, both kept), its plain
+   version and the library call (the DFT pair at main path 3's m=12 too,
+   and each transform on its two-pass route beside the fused one), the
+   RK4-CN stage's three kernels in both layouts and the rollouts beside
+   ``torch.fft`` in three rounds with their spread, the SFNO train step
    by five routes (kernels,
    ``impl="fft"``, plain versions, bf16 activations, remat: the last checks
    the doubled forward launches), the Adam step over all leaves of both
@@ -46,7 +49,8 @@ printing no result, when either is missing or any phase fails:
    --variants base,fused_adam --check`` at its own configuration (SFNO modes
    12/12/5, width 20, 64², t 10 → 40, batch 4), checks the losses and that
    the Adam kernel launched once a step over 52 leaves, every
-   ``dft2d_modes`` took the fused kernel and the SFNO kernels ran; then
+   ``dft2d_modes`` and ``dft2d_inverse`` took its fused kernel and the SFNO
+   kernels ran; then
    the same with ``--compute-dtype bfloat16 --scan 8``, where the FFN
    kernel's count must still move;
 9. drives the fourth main path, ``python -m tpu_cfd_torch.train.train_fno3d``
@@ -70,8 +74,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 N = 256
 DT = 1e-3
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on the
+# tensor cores, HBM3 rate. A product held to fp32 accuracy on the tensor cores
+# takes three TF32 products (3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi).
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 ROLLOUT_TOL = 5e-6   # rel-L2, kernel vs plain over 10 steps (fp32 sum order)
 KERNEL_TOL = 1e-5    # max abs error / max |plain|, one launch
@@ -120,10 +127,19 @@ def plain_versions(sc, ffn_ops):
         sc.modes, sc.inverse, ffn_ops.ffn_forward = saved
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def _bound(flops: float, nbytes: float, product: bool = True) -> dict:
+    """The least time the card could take: the bytes over the HBM rate or the
+    operations over the fastest fp32-accurate rate, whichever is longer. A
+    product may run on FFMA or as 3xTF32 on the tensor cores, so it takes the
+    lesser of the two; both are kept (``bound_ffma_ms``, ``bound_tf32x3_ms``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ffma = flops / FP32_FLOPS
+    t_tf32 = flops / TF32X3_FLOPS if product else None
+    t_ops = min(t_ffma, t_tf32) if product else t_ffma
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_ffma_ms": 1e3 * max(t_ffma, t_bytes),
+            "bound_tf32x3_ms": 1e3 * max(t_tf32, t_bytes) if product else None}
 
 
 def main() -> int:
@@ -357,13 +373,17 @@ def main() -> int:
                 p_grad = grads(fn, [x], cot)[0]
             check(f"{nm} backward {tag}", k_grad, p_grad)
         # the shape alone picks the route: fused where it fits (64^2), else
-        # two passes (256^2); three modes launches here, one in a backward
+        # two passes (256^2); three launches of each here, one in a backward
         fits = sc.fused_modes_layout(n, n, 2 * m, 2 * m) is not None
+        fits_inv = sc.fused_inverse_layout(n, n, 2 * m, 2 * m) is not None
         counts = dict(sc.LAUNCHES)
-        print(f"kernel dft2d_modes {tag}: launches {counts}, fused route {fits}",
-              flush=True)
+        print(f"kernel dft2d_modes/dft2d_inverse {tag}: launches {counts}, fused "
+              f"routes {fits}/{fits_inv}", flush=True)
         _require(fits == (n == rn) and counts["modes"] == 3
                  and counts["modes_fused"] == 3 * fits, f"dft2d_modes route at {tag}")
+        _require(fits_inv == (n == rn) and counts["inverse"] == 3
+                 and counts["inverse_fused"] == 3 * fits_inv,
+                 f"dft2d_inverse route at {tag}")
         # the name of each shape's entry in the kernels line
         key = {rm: "", sm: "_sweep"}[m] if n == rn else None
         if key is not None:
@@ -582,9 +602,10 @@ def main() -> int:
         want = train_steps * per_step[key] + val_batches * per_eval[key]
         _require(train_launches[key] == want,
                  f"{key} launched {train_launches[key]} times, expected {want}")
-    _require(train_launches["modes_fused"] == train_launches["modes"],
-             f"{train_launches['modes_fused']} of {train_launches['modes']} modes "
-             "launches took the fused kernel")
+    for key in ("modes", "inverse"):
+        _require(train_launches[key + "_fused"] == train_launches[key],
+                 f"{train_launches[key + '_fused']} of {train_launches[key]} {key} "
+                 "launches took the fused kernel")
 
     # -- 7. timings -----------------------------------------------------------
     def ffn_timed(case, bf16: bool):
@@ -658,7 +679,7 @@ def main() -> int:
             torch.cuda.synchronize()
         row["device_ms"] = sum(e.self_device_time_total for e in prof.key_averages()
                                if "adam_multi_kernel" in e.key) / 1e3 / 10
-        row.update(_bound(10 * numel, adam_ops.BYTES_PER_ELEMENT * numel))
+        row.update(_bound(10 * numel, adam_ops.BYTES_PER_ELEMENT * numel, product=False))
         return row
 
     adam_rows = {"sweep": adam_bench(sweep_sfno), "recipe": adam_bench(recipe_model)}
@@ -674,8 +695,10 @@ def main() -> int:
     # the kernels line takes the main path's shapes: the sweep's 52 leaves
     results["adam_step"].update(
         {k: adam_rows["sweep"][k] for k in
-         ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-    # name: (kernel, plain version, library call or None, flops, bytes)
+         ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_ffma_ms",
+          "bound_tf32x3_ms")})
+    # name: (kernel, plain version, library call or None, flops, bytes); the
+    # spectral-step kernels' times come from the three rounds below
     timed = {name: (kern, plain, None, flops, nbytes)
              for name, (kern, plain, flops, nbytes) in kernels.items()}
     # the DFT pair at the recipe's shape (main path 2) and the sweep's (main
@@ -688,13 +711,16 @@ def main() -> int:
         "pointwise_ffn": ffn_timed(ffn_recipe, False),
         "pointwise_ffn_bf16": ffn_timed(ffn_sweep, True),
     })
-    # dft2d_modes on the two-pass route it had before the fused kernel
-    modes_two_pass = {}
+    # the DFT pair on the two-pass route each had before its fused kernel
+    two_pass = {}
     for key, case in dft_cases.items():
-        modes_two_pass["dft2d_modes" + key] = cuda_ms(
-            lambda: sc._launch_modes_two_pass(case["v"], case["c"]), 20)
-        print(f"time dft2d_modes{key} on two passes: "
-              f"{modes_two_pass['dft2d_modes' + key]:.4f} ms", flush=True)
+        for name, fn in (
+                ("dft2d_modes", lambda: sc._launch_modes_two_pass(case["v"], case["c"])),
+                ("dft2d_inverse", lambda: sc._launch_inverse_two_pass(
+                    case["g"], case["scale"], case["c"]))):
+            two_pass[name + key] = cuda_ms(fn, 20)
+            print(f"time {name}{key} on two passes: {two_pass[name + key]:.4f} ms",
+                  flush=True)
     # the other two instances, for the table only
     ffn_other = {}
     for name, case, bf16 in (("recipe_bf16", ffn_recipe, True),
@@ -710,47 +736,89 @@ def main() -> int:
               flush=True)
     for name, (kern, plain, lib, flops, nbytes) in timed.items():
         r = results[name]
-        r["ms"] = cuda_ms(kern, 20)
+        if name not in kernels:
+            r["ms"] = cuda_ms(kern, 20)
         r["plain_ms"] = cuda_ms(plain, 20)
         r["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
         r.update(_bound(flops, nbytes))
     chain_ms = cuda_ms(chain, 20)
-    for name, r in results.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"time {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
-    print(f"time pointwise_ffn as F.linear -> gelu -> F.linear (information): "
-          f"{chain_ms:.4f} ms", flush=True)
 
-    rollouts = []
+    # the RK4-CN stage's kernels in both layouts at b=32, and the rollouts
+    # beside torch.fft, in three rounds: torch.fft's time moves between runs
     rsteps = 100
+    step_kernels = {f"{name} galerkin": kern for name, (kern, *_) in kernels.items()}
+    ca = ss.constants("aligned", grid, 1e-3, 0.0, DT, dev)
+    wa = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl="dft_aligned",
+                                device=dev)._align(initial_spectrum(B)).contiguous()
+    Aa = ss._inverse_first_plain(wa, ca)
+    Ta = ss._advect_plain(Aa, ca)
+    wak, hak = wa.clone(), torch.randn_like(wa) * wa.abs().mean()
+    jca = ss.resolve_block_cols("auto", N, ca["m"])
+    step_kernels.update({
+        "spectral_inverse_first aligned": lambda: ss.inverse_first(wa, ca),
+        "spectral_advect aligned": lambda: ss.advect(Aa, ca, jca),
+        "spectral_forward_first aligned": lambda: ss.forward_first(Ta, wak, hak, ca, 1)})
+    rollout_cases = {}
     for layout, b in (("galerkin", 32), ("galerkin", 8), ("aligned", 32)):
         what = initial_spectrum(b)
         fused = NavierStokes2DSpectral(viscosity=1e-3, grid=grid,
                                        fft_impl=f"dft_{layout}", fused=True,
                                        device=dev)
-        wb = fused._align(what).contiguous()
+        fft_ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl="fft",
+                                        device=dev)
+        rollout_cases[f"rollout {layout} b{b}"] = (
+            lambda f=fused, x=what: f.forward(x, DT, rsteps))
+        rollout_cases[f"torch.fft b{b} ({layout} case)"] = (
+            lambda f=fft_ns, x=what: f.forward(x, DT, rsteps))
+    rounds = []
+    for _ in range(3):
+        rounds.append({**{k: cuda_ms(fn, 20) for k, fn in step_kernels.items()},
+                       **{k: cuda_ms(fn, 1) / rsteps for k, fn in rollout_cases.items()}})
+    spread = {}
+    for k in rounds[0]:
+        ts = sorted(r[k] for r in rounds)
+        spread[k] = {"ms": ts, "median": ts[1], "spread": (ts[2] - ts[0]) / ts[1]}
+        print(f"time x3 {k}: {ts[0]:.4f} / {ts[1]:.4f} / {ts[2]:.4f} ms"
+              f"{' per step' if 'rollout' in k or 'fft' in k else ''} (spread "
+              f"{100 * spread[k]['spread']:.1f} %)", flush=True)
+    for name in kernels:
+        results[name]["ms"] = spread[f"{name} galerkin"]["median"]
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        tf = "" if r.get("bound_tf32x3_ms") is None else (
+            f"; FFMA {r['bound_ffma_ms']:.4f}, 3xTF32 {r['bound_tf32x3_ms']:.4f}")
+        print(f"time {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}{tf})",
+              flush=True)
+    print(f"time pointwise_ffn as F.linear -> gelu -> F.linear (information): "
+          f"{chain_ms:.4f} ms", flush=True)
+
+    rollouts = []
+    for layout, b in (("galerkin", 32), ("galerkin", 8), ("aligned", 32)):
+        what = initial_spectrum(b)
+        wb = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl=f"dft_{layout}",
+                                    device=dev)._align(what).contiguous()
         cb = ss.constants(layout, grid, 1e-3, 0.0, DT, dev)
         jcb = ss.resolve_block_cols("auto", N, cb["m"])
         row = {"layout": layout, "n": N, "batch": b, "steps": rsteps}
-        row["ms_per_step"] = cuda_ms(lambda: fused.forward(what, DT, rsteps), 1) / rsteps
+        row["ms_per_step"] = spread[f"rollout {layout} b{b}"]["median"]
         row["plain_ms_per_step"] = cuda_ms(
             lambda: ss._fused_rollout_plain(wb, cb, rsteps, jcb), 1) / rsteps
-        lib = {}
-        for impl in (f"dft_{layout}", "fft"):
-            ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl=impl,
-                                        device=dev)
-            lib[impl] = cuda_ms(lambda: ns.forward(what, DT, rsteps), 1) / rsteps
-        row["library_ms_per_step"] = lib
-        row["bound_ms_per_step"] = (
-            1e3 * b * ss.flops_per_sample_step(layout, N) / FP32_FLOPS)
+        ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl=f"dft_{layout}",
+                                    device=dev)
+        row["library_ms_per_step"] = {
+            f"dft_{layout}": cuda_ms(lambda: ns.forward(what, DT, rsteps), 1) / rsteps,
+            "fft": spread[f"torch.fft b{b} ({layout} case)"]["median"]}
+        flops = b * ss.flops_per_sample_step(layout, N)
+        row["bound_ms_per_step"] = 1e3 * flops / max(FP32_FLOPS, TF32X3_FLOPS)
+        row["bound_ffma_ms_per_step"] = 1e3 * flops / FP32_FLOPS
         row["sample_steps_per_s"] = b / (row["ms_per_step"] * 1e-3)
+        lib = row["library_ms_per_step"]
         print(f"time rollout {layout} b{b}: kernel {row['ms_per_step']:.4f} ms/step "
               f"({row['sample_steps_per_s']:.1f} sample-steps/s), bound "
-              f"{row['bound_ms_per_step']:.4f}, plain {row['plain_ms_per_step']:.4f}, "
-              f"torch.matmul dft_{layout} {lib[f'dft_{layout}']:.4f}, torch.fft "
-              f"{lib['fft']:.4f} ms/step", flush=True)
+              f"{row['bound_ms_per_step']:.4f} (FFMA {row['bound_ffma_ms_per_step']:.4f}), "
+              f"plain {row['plain_ms_per_step']:.4f}, torch.matmul dft_{layout} "
+              f"{lib[f'dft_{layout}']:.4f}, torch.fft {lib['fft']:.4f} ms/step", flush=True)
         rollouts.append(row)
 
     def profile_steps(route, fn, steps: int) -> dict:
@@ -770,7 +838,8 @@ def main() -> int:
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
         ours = sum(e.self_device_time_total for e in kern
                    if any(k in e.key for k in ("bgemm_kernel", "modes_fused_kernel",
-                                               "ffn_kernel", "adam_multi_kernel"))
+                                               "inverse_fused_kernel", "ffn_kernel",
+                                               "adam_multi_kernel"))
                    ) / 1e3 / steps
         top = [(e.key[:90], e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in kern[:12]]
@@ -832,8 +901,9 @@ def main() -> int:
             _require(counts[key] == iters * want,
                      f"{key}: {counts[key]} launches in {iters} {route} steps, "
                      f"expected {iters * want}")
-        _require(counts["modes_fused"] == counts["modes"],
-                 f"every modes launch fused on the {route} route")
+        for key in ("modes", "inverse"):
+            _require(counts[key + "_fused"] == counts[key],
+                     f"every {key} launch fused on the {route} route")
         row = {"route": route, "ms_per_step": ms, "samples_per_s": rb / (ms * 1e-3),
                "launches_per_step": {k: v / iters for k, v in counts.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -897,9 +967,10 @@ def main() -> int:
                  f"leaves, expected once a step over {LEAVES} leaves, {steps_} steps")
         for key in ("modes", "inverse", "ffn"):
             _require(counts[key] > 0, f"{key} did not launch in the sweep ({tag})")
-        _require(counts["modes_fused"] == counts["modes"],
-                 f"{counts['modes_fused']} of {counts['modes']} modes launches took "
-                 f"the fused kernel ({tag})")
+        for key in ("modes", "inverse"):
+            _require(counts[key + "_fused"] == counts[key],
+                     f"{counts[key + '_fused']} of {counts[key]} {key} launches took "
+                     f"the fused kernel ({tag})")
         return rows_, counts
 
     # where the sweep's step spends its time: the device's busy share
@@ -947,9 +1018,9 @@ def main() -> int:
                "spectral_advect": ("spectral_step", "advect"),
                "spectral_forward_first": ("spectral_step", "forward_first"),
                "dft2d_modes": ("spectral_conv", "modes_fused"),
-               "dft2d_inverse": ("spectral_conv", "inverse"),
+               "dft2d_inverse": ("spectral_conv", "inverse_fused"),
                "dft2d_modes_sweep": ("spectral_conv", "modes_fused_sweep"),
-               "dft2d_inverse_sweep": ("spectral_conv", "inverse_sweep"),
+               "dft2d_inverse_sweep": ("spectral_conv", "inverse_fused_sweep"),
                "pointwise_ffn": ("ffn", "ffn"),
                "pointwise_ffn_bf16": ("ffn", "ffn_bf16"),
                "adam_step": ("adam", "adam")}
@@ -976,7 +1047,7 @@ def main() -> int:
                 **{("spectral_conv", k): v for k, v in train_launches.items()
                    if k in sc.LAUNCHES},
                 ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"],
-                ("spectral_conv", "inverse_sweep"): sweep_launches["inverse"],
+                ("spectral_conv", "inverse_fused_sweep"): sweep_launches["inverse_fused"],
                 ("ffn", "ffn"): train_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
@@ -986,11 +1057,12 @@ def main() -> int:
          "replaces": replaces.get(name, replaces.get(src)),
          "launches": launches[(src, key)], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "bound_by": r["bound_by"], "bound_ffma_ms": r["bound_ffma_ms"],
+         "bound_tf32x3_ms": r["bound_tf32x3_ms"], "library_ms": r["library_ms"],
          "shape": shapes.get(name, shapes.get(src))}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
-        "adam_steps": adam_rows, "modes_two_pass_ms": modes_two_pass,
+        "adam_steps": adam_rows, "two_pass_ms": two_pass, "timed_x3": spread,
         "ffn_other_instances": ffn_other, "sweep_steps": sweep_rows,
         "sweep_profile": sweep_profile, "fno3d_step": fno_row,
         "fno3d_history": fhist,

@@ -1,4 +1,4 @@
-"""The SFNO and Adam kernels on the card against their plain PyTorch versions.
+"""The SFNO, spectral-step and Adam kernels on the card against their plain versions.
 
 Imports only torch and the port, so it runs where JAX is not installed:
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py`` on a machine
@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_cfd_torch import grids
 from tpu_cfd_torch import models as tm
 from tpu_cfd_torch.models.fused_conv import _dft2d_constants, make_dft2d_ops
 from tpu_cfd_torch.ops.cuda import adam as tadam
 from tpu_cfd_torch.ops.cuda import ffn as tffn
 from tpu_cfd_torch.ops.cuda import spectral_conv as sc
+from tpu_cfd_torch.ops.cuda import spectral_step as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -67,9 +69,10 @@ def test_dft_kernels_match_plain(dev, n):
         outs.append(torch.cat([torch.view_as_real(g).flatten(), y.flatten()]))
         grads.append(x.grad)
     torch.cuda.synchronize()
-    # each shape fits in shared memory, so both modes launches are fused
+    # each shape fits in shared memory, so every launch is fused
     assert sc.fused_modes_layout(n, n, 16, 16) is not None
-    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2, "inverse": 2}
+    assert sc.fused_inverse_layout(n, n, 16, 16) is not None
+    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2, "inverse": 2, "inverse_fused": 2}
     assert _rel_err(outs[0], outs[1]) < 1e-5
     assert _rel_err(grads[0], grads[1]) < 1e-5
 
@@ -94,7 +97,9 @@ def test_modes_route_matches_plain(dev, n, m, b, planes, fused):
     x = g.clone().requires_grad_(True)
     inverse(x, 0.5 / (n * n)).backward(v)   # backward: modes(0.5/n^2 v)
     torch.cuda.synchronize()
-    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2 * fused, "inverse": 1}
+    inverse_fused = sc.fused_inverse_layout(n, n, 2 * m, 2 * m) is not None
+    assert sc.LAUNCHES == {"modes": 2, "modes_fused": 2 * fused, "inverse": 1,
+                           "inverse_fused": int(inverse_fused)}
     assert _rel_err(got, sc._modes_plain(v, c)) < 1e-5
     with _plain_versions():
         y = g.clone().requires_grad_(True)
@@ -104,6 +109,67 @@ def test_modes_route_matches_plain(dev, n, m, b, planes, fused):
     flat = torch.randn(b * planes * n * n + 1, device=dev, generator=gen)
     w = flat[1:].view(b, planes, n, n)
     assert _rel_err(sc.modes(w, c), sc._modes_plain(w, c)) < 1e-5
+
+
+# (n, m, b, planes): small, the recipe's 64^2 at m = 32, the sweep's at
+# m = 12, and 256^2, which takes the two passes
+@pytest.mark.parametrize("n,m,b,planes,fused", [
+    (16, 8, 2, 3, True), (64, 32, 2, 50, True), (64, 12, 4, 200, True),
+    (256, 32, 1, 5, False)])
+def test_inverse_route_matches_plain(dev, n, m, b, planes, fused):
+    """inverse forward, and as modes' backward, vs plain, on the route the
+    shape picks; the modes are random, not Hermitian."""
+    assert (sc.fused_inverse_layout(n, n, 2 * m, 2 * m) is not None) == fused
+    gen = torch.Generator(device=dev).manual_seed(8)
+    modes, _ = make_dft2d_ops(n, n, m, m, dev)
+    c = _dft2d_constants(n, n, m, m, str(dev), "complex64")
+    v = torch.randn(b, planes, n, n, device=dev, generator=gen)
+    g = torch.randn(b, planes, 2 * m, 2 * m, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    sc.reset_launch_counts()
+    got = sc.inverse(g, 0.5 / (n * n), c)
+    x = v.clone().requires_grad_(True)
+    modes(x).backward(g)   # backward: inverse(g, 1)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["inverse"] == 2 and sc.LAUNCHES["inverse_fused"] == 2 * fused
+    assert _rel_err(got, sc._inverse_plain(g, 0.5 / (n * n), c)) < 1e-5
+    with _plain_versions():
+        y = v.clone().requires_grad_(True)
+        modes(y).backward(g)
+    assert _rel_err(x.grad, y.grad) < 1e-5
+    # an offset view (not 16-byte aligned) takes the same route
+    flat = torch.randn(2 * g.numel() + 2, device=dev, generator=gen)
+    h = torch.view_as_complex(flat[2:].view(*g.shape, 2))
+    assert h.data_ptr() % 16
+    assert _rel_err(sc.inverse(h, 1.0, c), sc._inverse_plain(h, 1.0, c)) < 1e-5
+
+
+# 256^2 (32 rows a K2 block), 512^2 (16) and 1024^2 (8), both layouts
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n,b", [(32, 3), (256, 2), (512, 1), (1024, 1)])
+def test_spectral_step_kernels_match_plain(dev, layout, n, b):
+    """K1, K2 and K3 of the RK4-CN stage vs their plain versions, one launch
+    each, at every K2 instance."""
+    grid = grids.Grid((n, n), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    c = ss.constants(layout, grid, 1e-3, 0.1, 1e-3, dev)
+    R, m = c["R"], c["m"]
+    c["forcing"] = torch.randn(R, m, dtype=torch.complex64, device=dev, generator=gen)
+    w = torch.randn(b, R, m, dtype=torch.complex64, device=dev, generator=gen)
+    h = torch.randn(b, R, m, dtype=torch.complex64, device=dev, generator=gen)
+    jc = ss.resolve_block_cols("auto", n, m)
+    ss.reset_launch_counts()
+    A = ss.inverse_first(w, c)
+    assert _rel_err(A, ss._inverse_first_plain(w, c)) < 1e-5
+    T = ss.advect(A, c, jc)
+    assert _rel_err(T, ss._advect_plain(A, c)) < 1e-5
+    for k in (0, 3):
+        want = ss._forward_first_plain(T, w, h, c, k)
+        got = ss.forward_first(T, w.clone(), h.clone(), c, k)
+        for g_, w_ in zip(got, want):
+            assert _rel_err(g_, w_) < 1e-5
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == {"inverse_first": 1, "advect": 1, "forward_first": 2}
 
 
 @pytest.mark.parametrize("act", sorted(tffn.ACTIVATIONS))

@@ -192,3 +192,82 @@ def test_launch_modes_takes_the_route_of_its_shape(monkeypatch, n, m, route):
          "FxT": torch.zeros(n, 2 * m, dtype=torch.complex64)}
     sc._launch_modes(torch.zeros(1, 2, n, n), c)
     assert taken == [route]
+
+
+def test_fused_inverse_route_by_shape():
+    """The fused dft2d_inverse kernel takes the recipe's (64^2, m = 32) and the
+    sweep's (64^2, m = 12) shapes within one block's 227 KB; 256^2 and an odd
+    row length go to the two-pass route. Each warp holds at most one 32 x 32
+    tile of Q (pp my folded rows x 2nx), and the strides are 4, 8, 4 and 8
+    mod 32 words (conflict-free fragment loads)."""
+    ints, nbytes = sc.fused_inverse_layout(64, 64, 64, 64)
+    assert nbytes == 209_408 <= sc.FUSED_SMEM_LIMIT
+    assert ints == (64, 64, 64, 64, 2, 64, 64, 128, 64, 64, 64, 132, 136, 68, 72, 8704)
+    ints, nbytes = sc.fused_inverse_layout(64, 64, 24, 24)
+    assert ints[4] == 4 and nbytes == 98_688
+    assert sc.fused_inverse_layout(256, 256, 64, 64) is None
+    assert sc.fused_inverse_layout(64, 63, 64, 64) is None   # odd rows: no float2 stores
+    for shape in ((64, 64, 64, 64), (64, 64, 24, 24), (16, 12, 6, 8), (96, 96, 40, 40)):
+        ints, nbytes = sc.fused_inverse_layout(*shape)
+        nx, ny, my2, mx2, pp, r1, kr, n1, m2, k2, n2, sg, sx, sq, sy, gsz = ints
+        my = my2 // 2
+        assert (sg % 32, sx % 32, sq % 32, sy % 32) == (4, 8, 4, 8)
+        assert r1 >= pp * my and r1 % 32 == 0 and (r1 // 32) * (n1 // 32) <= 8
+        assert kr >= mx2 and kr % 4 == 0 and n1 >= 2 * nx and n1 % 32 == 0
+        assert m2 >= nx and m2 % 32 == 0 and k2 >= 2 * my and k2 % 8 == 0
+        assert n2 >= ny and n2 % 32 == 0 and sg >= 2 * kr and sq >= k2
+        assert sx >= n1 and sy >= n2 and gsz >= max(r1 * sg, pp * m2 * sq)
+        assert nbytes == 4 * (2 * pp * my2 * mx2 + gsz + 2 * kr * sx + 2 * k2 * sy
+                              + 2 * (pp * nx + pp * my + nx + ny)) <= sc.FUSED_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,m,route", [(64, 32, "fused"), (64, 12, "fused"),
+                                       (256, 32, "two_pass")])
+def test_launch_inverse_takes_the_route_of_its_shape(monkeypatch, n, m, route):
+    taken = []
+    monkeypatch.setattr(sc, "_launch_inverse_fused",
+                        lambda g, s, c, layout: taken.append("fused"))
+    monkeypatch.setattr(sc, "_launch_inverse_two_pass",
+                        lambda g, s, c: taken.append("two_pass"))
+    c = {"GxT": torch.zeros(2 * m, n, dtype=torch.complex64),
+         "GyT": torch.zeros(2 * m, n, dtype=torch.complex64)}
+    sc._launch_inverse(torch.zeros(1, 2, 2 * m, 2 * m, dtype=torch.complex64), 1.0, c)
+    assert taken == [route]
+
+
+def _inverse_folded(g, scale, c):
+    """The fused inverse kernel's arithmetic in torch: each mode folded with
+    its mirror (row 0 at weight 1/2), the tensor cores' two products on the
+    my rows y' >= 0, and the sums the kernel does on the CUDA cores: the
+    mirrors of column -mx and row -my."""
+    my, mx = g.shape[-2] // 2, g.shape[-1] // 2
+    ky, kx = torch.arange(my), torch.arange(2 * mx)
+    mirror_y = torch.where(ky == 0, 0, 2 * my - ky)
+    mirror_x = torch.where(kx == 0, 0, 2 * mx - kx)
+    gm = g[..., mirror_y[:, None], mirror_x].conj()
+    gf = g[..., :my, :] + gm
+    gf[..., 0, :] = gf[..., 0, :] / 2
+    gf[..., mx] = g[..., :my, mx]                       # column -mx: no mirror
+    gxt, gyt = c["GxT"], c["GyT"]
+    q = gf @ gxt                                        # (.., my, nx)
+    q[..., 1:, :] += gm[..., 1:, mx, None] * gxt[mx].conj()   # its mirrors
+    qm = g[..., my, :] @ gxt                            # row -my (.., nx)
+    b3 = torch.stack([gyt[:my].real, -gyt[:my].imag], dim=-2).reshape(2 * my, -1)
+    qt = torch.view_as_real(q.transpose(-1, -2).contiguous()).flatten(-2)  # (.., nx, 2my)
+    out = qt @ b3 + (qm[..., :, None] * gyt[my]).real
+    return scale * out
+
+
+@pytest.mark.parametrize("n,m", [(64, 32), (64, 12), (16, 6)])
+def test_folded_inverse_matches_plain(n, m):
+    """The fold is exact for any input, Hermitian or not: on random complex128
+    modes it equals the plain inverse to rounding."""
+    from tpu_cfd_torch.models.fused_conv import _dft2d_constants
+    c = _dft2d_constants(n, n, m, m, "cpu", "complex128")
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.standard_normal((2, 3, 2 * m, 2 * m))
+                         + 1j * rng.standard_normal((2, 3, 2 * m, 2 * m)))
+    idx = torch.cat([torch.zeros(1, dtype=torch.long), torch.arange(2 * m - 1, 0, -1)])
+    assert _rel_err(g, g[..., idx[:, None], idx].conj().resolve_conj()) > 0.5  # not Hermitian
+    want = sc._inverse_plain(g, 0.3, c)
+    assert _rel_err(_inverse_folded(g, 0.3, c), want) < 1e-12

@@ -222,3 +222,42 @@ def test_kernels_match_plain_on_the_card(layout):
     want = tss._fused_rollout_plain(w, c, STEPS)
     torch.cuda.synchronize()
     assert _rel(got.cpu().numpy(), want.cpu().numpy()) < 5e-6
+
+
+def test_advect_layout_by_shape():
+    """K2's shared-memory rule: 32 rows a block at 256^2 in both layouts
+    (3 and 4 passes over T's 2m columns; two blocks an SM fit at Galerkin),
+    8 at 1024^2, each within one block's 227 KB; a spectrum too wide for 8
+    rows is refused with a message."""
+    rows, m = tdft.galerkin_block(256)
+    assert tss.advect_layout(256, m, 64) == (32, 3, 114_192)
+    assert 2 * (114_192 + 1024) <= 233_472        # two blocks an SM, 1 KB each reserved
+    assert tss.advect_layout(256, 128, 64) == (32, 4, 156_432)
+    assert tss.advect_layout(256, m, 256)[0] == 32    # block_cols=None: whole rows
+    m1024 = tdft.galerkin_block(1024)[1]
+    for mm in (m1024, 512):                           # 1024^2: Galerkin, aligned
+        tx, passes, nbytes = tss.advect_layout(1024, mm, 64)
+        assert tx == 8 and passes <= 12 and nbytes <= tss._MAX_SMEM
+        assert tss.resolve_block_cols("auto", 1024, mm) == 64
+    for n, mm in ((256, m), (256, 128), (512, 171), (1024, m1024), (32, 11)):
+        tx, passes, nbytes = tss.advect_layout(n, mm, 64)
+        cols = 4 * (256 // min(tx, 16))
+        assert passes * cols >= 2 * mm > (passes - 1) * cols
+        fr = max(f for f in (1, 2, 4, 8, 16) if f == 1 or f * passes * cols <= 1024)
+        k1p = -(-2 * mm // 16) * 16
+        slot = max(1024, fr * passes * cols)
+        assert nbytes == 4 * (k1p * (4 * tx + 4) + 3 * slot + (64 + fr) * (tx + 1))
+    assert tss.advect_layout(2048, 1024, 64) is None
+    with pytest.raises(ValueError, match="shared memory"):
+        tss.resolve_block_cols("auto", 2048, 1024)
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+def test_kernel_operand_layouts(layout):
+    """The kernels' copies of the constants: G and F transposed, the four
+    multipliers of a mode side by side, IL's rows re/im interleaved."""
+    c = tss.constants(layout, TG, 1e-3, 0.0, DT, "cpu")
+    assert torch.equal(c["GT"], c["G"].T) and torch.equal(c["FT"], c["F"].T)
+    assert torch.equal(c["cf4"], c["cf"].permute(1, 2, 0))
+    assert torch.equal(c["il"][0::2], c["il_re"]) and torch.equal(c["il"][1::2], c["il_im"])
+    assert all(c[k].is_contiguous() for k in ("GT", "FT", "cf4", "il"))

@@ -21,11 +21,11 @@
 // GFLOP). Its floor is then the 315 MB read and written: 0.094 ms at 3.35
 // TB/s (H100 SXM data sheet), bound by bytes.
 //
-// Two-pass route (dft2d_inverse, and dft2d_modes where the fused kernel does
-// not fit: a 256^2 fp32 plane alone is more than an SM's 227 KB of shared
-// memory, and the model's eval phase runs at 256^2). Each transform is two
-// passes of one tiled batched complex GEMM on CUDA cores, one pass per
-// contraction, with the intermediate in device memory (L2 when it fits):
+// Two-pass route (each transform where its fused kernel does not fit: a
+// 256^2 fp32 plane alone is more than an SM's 227 KB of shared memory, and
+// the model's eval phase runs at 256^2). Each transform is two passes of one
+// tiled batched complex GEMM on CUDA cores, one pass per contraction, with
+// the intermediate in device memory (L2 when it fits):
 //
 //   modes:   H = v @ FyT (nx x 2my, real x complex);  g = H^T @ FxT
 //   inverse: Q = g @ GxT (2my x nx, complex);          out = scale Re(Q^T @ GyT)
@@ -33,26 +33,31 @@
 // Each pass is C[p] = op(A[p]) @ B for a matrix B shared by every plane:
 // 64 x 64 output tiles, 16-deep contraction chunks staged in shared
 // memory, 256 threads, each thread a 4 x 4 register tile. Any size works;
-// ragged edges are masked. At the recipe dft2d_modes this way takes 0.68 ms
-// on an H100, twice cuFFT's time: the FFMA work, and the intermediate
+// ragged edges are masked. At the recipe either transform takes 0.61-0.68
+// ms this way on an H100, behind cuFFT: the FFMA work, and the intermediate
 // (210 MB) written and read back.
 //
-// Fused route (dft2d_modes_fused), where a few planes, their H and both
-// transform matrices fit in one SM's shared memory (64^2 at m = 32: two
-// planes, 213 KB). Keeping H on chip alone cannot pass cuFFT, since the
-// FFMA floor of 20.1 GFLOP is 0.30 ms; the products go to the tensor cores,
-// and a real input lets them do half of them. One persistent kernel does
-// both contractions of its planes on chip, as the TPU kernel does in VMEM:
+// Fused routes, where a few planes, their intermediate and both transform
+// matrices fit in one SM's shared memory (64^2 at m = 32, two planes). Keeping
+// the intermediate on chip alone cannot pass cuFFT, since the FFMA floor of
+// 20.1 GFLOP is 0.30 ms; the products go to the tensor cores, on
+// mma.sync.m16n8k8 TF32 with the 3xTF32 split (a_lo b_hi + a_hi b_lo + a_hi
+// b_hi, fp32 accumulation), which keeps fp32 accuracy (plain TF32 keeps three
+// digits), and only half of the modes take them. One persistent kernel a
+// transform does both contractions of its planes on chip, as the TPU kernel
+// does in VMEM; each block splits both matrices into TF32 hi and lo parts
+// once and walks groups of planes, blockIdx.x, + gridDim.x, ..., the next
+// group coming in by cp.async while one computes. The bound of either
+// function stays 0.094 ms by bytes.
 //
-//   - each block loads FyT and FxT once, split into TF32 hi and lo parts;
-//   - it walks groups of pp planes, blockIdx.x, + gridDim.x, ...; the next
-//     group comes in by cp.async into the second buffer while one computes;
+// dft2d_modes_fused (modes_fused_kernel, 30 GFLOP of TF32 products at the
+// recipe):
 //   - v is real, so g[-y, -x] = conj g[y, x] and H[x, -y] = conj H[x, y]:
 //     the tensor cores compute the modes y = 0..my-1 only (my = my2 / 2),
 //     and each row of g is stored with its mirror. Mode y = -my has no
 //     mirror among the modes, and the mirrors of column x = -mx need column
 //     x = +mx: those are sums on the CUDA cores (4 % of the flops at the
-//     recipe);
+//     recipe); two v buffers;
 //   - y-contraction: H (nx x my, re/im interleaved) = v @ view_as_real(FyT's
 //     first my columns), one real product for the pp planes stacked, kept
 //     in shared memory;
@@ -60,23 +65,33 @@
 //     with a 2nx-deep contraction: A2[y'][2x + c] = H[x][2y' + c] and
 //     B2[2x + c][n] = (c ? (n even ? -1 : 1) : 1) FxT_re_im[x][n ^ c], read
 //     straight from the interleaved FxT, so g comes out interleaved
-//     complex64 (B, 2my, 2mx) and is stored from the accumulators;
-//   - both products run on mma.sync.m16n8k8 TF32 with the 3xTF32 split
-//     (a_lo b_hi + a_hi b_lo + a_hi b_hi, fp32 accumulation), which keeps
-//     fp32 accuracy (plain TF32 keeps three digits): 30 GFLOP of TF32
-//     products at the recipe. The bound of the function stays 0.094 ms by
-//     bytes.
+//     complex64 (B, 2my, 2mx) and is stored from the accumulators.
 //
-// 8 warps each own 32 x 32 output tiles; pp is the fewest planes that give
-// each contraction 8 tiles. Shared-memory strides are padded (row stride
-// = 4, 8 or 16 mod 32 words) and the matrices' columns permuted within
-// 32-column blocks, so that every fragment load is free of bank conflicts
-// and a thread's four B fragments come in one 16-byte load. The layout
-// (pp, padded sizes, strides) comes from the host
-// (tpu_cfd_torch/ops/cuda/spectral_conv.py::fused_modes_layout), which also
-// decides by its byte count whether a shape takes this kernel. mma.sync is
-// Hopper's older path to the tensor cores; wgmma, which reaches the dense
-// TF32 peak, is the next step for the x-contraction.
+// dft2d_inverse_fused (inverse_fused_kernel): only the real part of the
+// result is kept, and Gx[x, -x'] = conj Gx[x, x'] (Gy likewise), so a mode
+// and its mirror add as Re(a (g + conj g')) for any g, Hermitian or not (the
+// backward feeds it random cotangents). Each plane is folded as it moves
+// from its cp.async buffer into the operand, gf[y'] = g[y'] + conj g[-y']
+// with row 0 at weight 1/2, and the tensor cores take the my rows y' >= 0:
+//   - x-contraction: Q (pp my x 2nx) = gf @ GxT, complex, in the same real
+//     form as above (B2 from the interleaved GxT), the pp planes' rows
+//     stacked; each warp holds one 32 x 32 tile of Q in registers while
+//     Q^T overwrites the folded modes in shared memory;
+//   - y-contraction: out[x][y] = scale sum_k Q^T[x][k] B3[k][y] with
+//     B3[2y' + c][y] = (c ? -Im : Re) GyT[y'][y], depth 2my, reading Q's
+//     re/im pairs in place;
+//   - on the CUDA cores: row y' = -my and the mirrors of column x' = -mx,
+//     which have no partner among the modes (2 % of the flops at the recipe).
+//
+// 8 warps each own 32 x 32 output tiles. Shared-memory strides are padded
+// (row stride = 4, 8 or 16 mod 32 words) and the matrices' columns permuted
+// within 32-column blocks, so that every fragment load is free of bank
+// conflicts and a thread's four B fragments come in one 16-byte load. The
+// layouts (planes a block, padded sizes, strides) come from the host
+// (tpu_cfd_torch/ops/cuda/spectral_conv.py::fused_modes_layout and
+// fused_inverse_layout), which also decides by their byte count whether a
+// shape takes a fused kernel. mma.sync is Hopper's older path to the tensor
+// cores; wgmma, which reaches the dense TF32 peak, is the next step.
 //
 // Plain C interface: pointers and the stream are void*; each entry point
 // returns the first launch error (cudaGetLastError() after each launch).
@@ -292,35 +307,60 @@ __device__ __forceinline__ void b_quad(uint32_t (&b)[4][2], int slot,
   b[3][slot] = __float_as_uint(sgn * t.w);
 }
 
+// A fragments at depth k0 of a row-major operand (row stride s).
+__device__ __forceinline__ void a_rows(Frags& f, const float* A, int m0, int k0,
+                                       int gq, int tq, int s) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* a = A + (m0 + 16 * i + gq) * s + k0 + tq;
+    split(a[0], f.ah[i][0], f.al[i][0]);
+    split(a[8 * s], f.ah[i][1], f.al[i][1]);
+    split(a[4], f.ah[i][2], f.al[i][2]);
+    split(a[8 * s + 4], f.ah[i][3], f.al[i][3]);
+  }
+}
+
+// B fragments at depth k0 of a real operand held as TF32 parts (row stride
+// s, columns permuted by perm32).
+__device__ __forceinline__ void b_real(Frags& f, const float* bh, const float* bl,
+                                       int n0, int k0, int gq, int tq, int s) {
+  const int o = (k0 + tq) * s + n0 + 4 * gq;
+  b_quad(f.bh, 0, bh + o, 1.f);
+  b_quad(f.bh, 1, bh + o + 4 * s, 1.f);
+  b_quad(f.bl, 0, bl + o, 1.f);
+  b_quad(f.bl, 1, bl + o + 4 * s, 1.f);
+}
+
+// B fragments at depth 2 x0 of a complex product in real form, read from
+// the interleaved complex matrix F (TF32 parts, row stride s, columns
+// permuted): B2[2x + c][n] = sgn F[x][n ^ c], c = tq & 1, sgn = -1 on the
+// imaginary row (c = 1) of a real column (n even).
+__device__ __forceinline__ void b_cplx(Frags& f, const float* bh, const float* bl,
+                                       int n0, int x0, int gq, int tq, int s) {
+  const int c = tq & 1;
+  const float sgn = (c == 1 && (gq & 1) == 0) ? -1.f : 1.f;
+  const int o = (x0 + (tq >> 1)) * s + n0 + 4 * (gq ^ c);
+  b_quad(f.bh, 0, bh + o, sgn);
+  b_quad(f.bh, 1, bh + o + 2 * s, sgn);
+  b_quad(f.bl, 0, bl + o, sgn);
+  b_quad(f.bl, 1, bl + o + 2 * s, sgn);
+}
+
 // y-contraction fragments at depth k0: A from V (row stride sv), B from the
-// FyT parts (row stride sy, columns permuted by perm32).
+// FyT parts (row stride sy).
 __device__ __forceinline__ void frags_y(Frags& f, const float* V, const float* yh,
                                         const float* yl, int m0, int n0, int k0,
                                         int gq, int tq, int sv, int sy) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float* a = V + (m0 + 16 * i + gq) * sv + k0 + tq;
-    split(a[0], f.ah[i][0], f.al[i][0]);
-    split(a[8 * sv], f.ah[i][1], f.al[i][1]);
-    split(a[4], f.ah[i][2], f.al[i][2]);
-    split(a[8 * sv + 4], f.ah[i][3], f.al[i][3]);
-  }
-  const int o = (k0 + tq) * sy + n0 + 4 * gq;
-  b_quad(f.bh, 0, yh + o, 1.f);
-  b_quad(f.bh, 1, yh + o + 4 * sy, 1.f);
-  b_quad(f.bl, 0, yl + o, 1.f);
-  b_quad(f.bl, 1, yl + o + 4 * sy, 1.f);
+  a_rows(f, V, m0, k0, gq, tq, sv);
+  b_real(f, yh, yl, n0, k0, gq, tq, sy);
 }
 
 // x-contraction fragments at depth 2 x0: A2[y][2x + c] = H[x][2y + c] and
-// B2[2x + c][n] = sgn Fx[x][n ^ c], c = tq & 1, sgn = -1 on the imaginary
-// row (c = 1) of a real column (n even).
+// B2 from the FxT parts (b_cplx).
 __device__ __forceinline__ void frags_x(Frags& f, const float* H, const float* xh,
                                         const float* xl, int m0, int n0, int x0,
                                         int gq, int tq, int sh, int sx) {
-  const int c = tq & 1;
-  const float sgn = (c == 1 && (gq & 1) == 0) ? -1.f : 1.f;
-  const float* hr = H + (x0 + (tq >> 1)) * sh + c;
+  const float* hr = H + (x0 + (tq >> 1)) * sh + (tq & 1);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float* a = hr + 2 * (m0 + 16 * i + gq);
@@ -329,11 +369,32 @@ __device__ __forceinline__ void frags_x(Frags& f, const float* H, const float* x
     split(a[2 * sh], f.ah[i][2], f.al[i][2]);    // k + 4: x + 2
     split(a[2 * sh + 16], f.ah[i][3], f.al[i][3]);
   }
-  const int o = (x0 + (tq >> 1)) * sx + n0 + 4 * (gq ^ c);
-  b_quad(f.bh, 0, xh + o, sgn);
-  b_quad(f.bh, 1, xh + o + 2 * sx, sgn);
-  b_quad(f.bl, 0, xl + o, sgn);
-  b_quad(f.bl, 1, xl + o + 2 * sx, sgn);
+  b_cplx(f, xh, xl, n0, x0, gq, tq, sx);
+}
+
+// The inverse's x-contraction fragments at depth 2 x0: A from the folded
+// modes, row-major (row stride sg), B2 from the GxT parts (b_cplx).
+__device__ __forceinline__ void frags_xi(Frags& f, const float* G, const float* xh,
+                                         const float* xl, int m0, int n0, int x0,
+                                         int gq, int tq, int sg, int sx) {
+  a_rows(f, G, m0, 2 * x0, gq, tq, sg);
+  b_cplx(f, xh, xl, n0, x0, gq, tq, sx);
+}
+
+// acc += the product of a warp's 32 x 32 tile over depth 8 * steps, the
+// fragments of step s loaded by frag(f, s) one step ahead of the multiply.
+template <typename Load>
+__device__ __forceinline__ void tile_product(float (&acc)[2][4][4], int steps,
+                                             Load frag) {
+  Frags f[2];
+  frag(f[0], 0);
+  for (int s = 0; s < steps; s += 2) {
+    if (s + 1 < steps) frag(f[1], s + 1);
+    mma3(acc, f[0]);
+    if (s + 1 >= steps) break;
+    if (s + 2 < steps) frag(f[0], s + 2);
+    mma3(acc, f[1]);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -580,6 +641,213 @@ __global__ void __launch_bounds__(FT, 1) modes_fused_kernel(
   }
 }
 
+// The fused inverse kernel's shared-memory layout, in floats; the host
+// computes it (spectral_conv.py::fused_inverse_layout).
+struct InvLayout {
+  int nx, ny, my2, mx2;
+  int pp;   // planes a block takes at once
+  int r1;   // pp * my folded rows (my = my2 / 2) padded to 32: rows of Q
+  int kr;   // mx2 padded to 4: rows of GxT (the x-contraction is 2 kr deep)
+  int n1;   // 2 nx padded to 32: columns of Q (re/im interleaved)
+  int m2;   // nx padded to 32: rows of a plane in the y-contraction
+  int k2;   // 2 my padded to 8: depth of the y-contraction
+  int n2;   // ny padded to 32: columns of out
+  int sg, sx, sq, sy;  // row strides of the folded modes, GxT, Q^T, B3 (4, 8, 4, 8 mod 32)
+  int gsz;  // floats of the region the folded modes and then Q^T take
+};
+
+// g (B, my2, mx2) c64 -> out (B, nx, ny) f32 = scale Re(Gx g^T Gy^T), through
+// GxT (mx2, nx) and GyT (my2, ny), both c64 read as interleaved floats.
+// Only the real part is kept, and Gx[x, -x'] = conj Gx[x, x'], Gy likewise,
+// so a mode and its mirror give Re(a g) + Re(conj(a) g') = Re(a (g + conj
+// g')): the planes are folded as they are read, and the tensor cores take
+// the my rows y' = 0..my-1 of
+//   gf[y'][x'] = g[y'][x'] + conj g[-y'][-x']   (y' >= 1, x' != -mx),
+//   gf[0][x']  = (g[0][x'] + conj g[0][-x']) / 2 (x' != -mx; x' = 0 is its
+//                own mirror),
+//   gf[y'][-mx] = g[y'][-mx]                    (no mirror among the modes).
+// The rest are sums on the CUDA cores: the mirrors of column -mx,
+// conj g[-y'][-mx] times Gx[., +mx] = conj Gx[., -mx], added to Q row y';
+// and row -my, whose mirror is not a mode, through its own Q row qm.
+//   x-contraction: Q (pp my x 2nx) = gf @ B2 (complex, in real form: b_cplx);
+//   y-contraction: out[x][y] = scale (sum_k Q^T[x][k] B3[k][y] + Re(qm[x]
+//     Gy[y][-my])), B3[2y' + c][y] = (c ? -Im : Re) GyT[y'][y].
+__global__ void __launch_bounds__(FT, 1) inverse_fused_kernel(
+    const float* __restrict__ g, const float* __restrict__ GxT,
+    const float* __restrict__ GyT, float* __restrict__ out, long long B,
+    float scale, const InvLayout L) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int my = L.my2 / 2, mx = L.mx2 / 2;
+  const int rawp = 2 * L.my2 * L.mx2;  // floats of one plane of g
+  float* raw = smem;                   // pp planes as they come (cp.async)
+  float* G = raw + L.pp * rawp;        // folded modes (r1 x sg), then Q^T (pp x m2 x sq)
+  float* xh = G + L.gsz;               // GxT parts (kr x sx)
+  float* xl = xh + L.kr * L.sx;
+  float* yh = xl + L.kr * L.sx;        // B3 parts (k2 x sy)
+  float* yl = yh + L.k2 * L.sy;
+  float2* qm = reinterpret_cast<float2*>(yl + L.k2 * L.sy);  // pp x nx: row -my's Q
+  float2* gm = qm + L.pp * L.nx;       // pp x my: conj g[-y'][-mx]
+  float2* gxm = gm + L.pp * my;        // nx: conj Gx[x][-mx]
+  float2* gym = gxm + L.nx;            // ny: Gy[y][-my]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const long long groups = (B + L.pp - 1) / L.pp;
+  long long grp = blockIdx.x;
+  auto load_group = [&](long long gi) {
+    for (int q = 0; q < L.pp && gi * L.pp + q < B; ++q) {
+      const float* src = g + (gi * L.pp + q) * rawp;
+      for (int i = 4 * threadIdx.x; i < rawp; i += 4 * FT)
+        cp_async16(raw + q * rawp + i, src + i);
+    }
+    cp_async_commit();
+  };
+  if (grp < groups) load_group(grp);
+  load_split(xh, xl, GxT, L.mx2, 2 * L.nx, 2 * L.nx, L.kr, L.n1, L.sx);
+  for (int i = threadIdx.x; i < L.k2 * L.sy; i += FT) {
+    const int k = i / L.sy, y = i - k * L.sy;
+    const float x = (k < 2 * my && y < L.ny)
+                        ? ((k & 1) ? -1.f : 1.f) * GyT[(k >> 1) * 2 * L.ny + 2 * y + (k & 1)]
+                        : 0.f;
+    uint32_t h, l;
+    split(x, h, l);
+    const int at = k * L.sy + (y < L.n2 ? perm32(y) : y);
+    yh[at] = __uint_as_float(h);
+    yl[at] = __uint_as_float(l);
+  }
+  const float2* gx2 = reinterpret_cast<const float2*>(GxT);
+  const float2* gy2 = reinterpret_cast<const float2*>(GyT);
+  for (int x = threadIdx.x; x < L.nx; x += FT) {
+    const float2 a = gx2[mx * L.nx + x];
+    gxm[x] = make_float2(a.x, -a.y);
+  }
+  for (int y = threadIdx.x; y < L.ny; y += FT) gym[y] = gy2[my * L.ny + y];
+
+  const int ncol1 = L.n1 / 32, units1 = (L.r1 / 32) * ncol1;
+  const int ncol2 = L.n2 / 32, per2 = (L.m2 / 32) * ncol2, units2 = L.pp * per2;
+  const int qsz = L.m2 * L.sq;
+  for (; grp < groups; grp += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // this group's planes are in; the last group's Q^T is read
+
+    // fold the modes into G (rows q my + y', pp my of them, then zeros)
+    for (int i = threadIdx.x; i < L.r1 * L.kr; i += FT) {
+      const int r = i / L.kr, kx = i - r * L.kr;
+      const int q = r / my, ky = r - q * my;
+      float2 v = make_float2(0.f, 0.f);
+      if (q < L.pp && kx < L.mx2 && grp * L.pp + q < B) {
+        const float2* pl = reinterpret_cast<const float2*>(raw + q * rawp);
+        const float2 a = pl[ky * L.mx2 + kx];
+        const float2 b = pl[(ky == 0 ? 0 : L.my2 - ky) * L.mx2 +
+                            (kx == mx ? mx : (kx == 0 ? 0 : L.mx2 - kx))];
+        if (kx == mx) {
+          v = a;
+          gm[q * my + ky] = make_float2(b.x, -b.y);  // read for y' >= 1 only
+        } else {
+          v = make_float2(a.x + b.x, a.y - b.y);
+          if (ky == 0) v = make_float2(0.5f * v.x, 0.5f * v.y);
+        }
+      }
+      *reinterpret_cast<float2*>(G + r * L.sg + 2 * kx) = v;
+    }
+    // row -my's Q on the CUDA cores, qm[q][x] = sum_x' g[-my][x'] GxT[x'][x]:
+    // two neighbouring threads an output, each over every other x', then one
+    // shuffle (whole warps go round the loop, so every lane takes it)
+    const int pairs = 2 * L.pp * L.nx, span = (pairs + 31) & ~31;
+    for (int i0 = threadIdx.x & ~1; i0 < span; i0 += FT) {
+      const int i = i0 >> 1, q = i / L.nx, x = i - q * L.nx;
+      float re = 0.f, im = 0.f, re2 = 0.f, im2 = 0.f;
+      if (i0 < pairs) {
+        const float2* row = reinterpret_cast<const float2*>(raw + q * rawp) + my * L.mx2;
+        for (int kx = lane & 1; kx < L.mx2; kx += 2) {
+          const float2 a = row[kx], f = __ldg(gx2 + kx * L.nx + x);
+          re = fmaf(a.x, f.x, re);
+          im = fmaf(a.x, f.y, im);
+          re2 = fmaf(-a.y, f.y, re2);
+          im2 = fmaf(a.y, f.x, im2);
+        }
+      }
+      re += re2;
+      im += im2;
+      re += __shfl_xor_sync(0xffffffffu, re, 1);
+      im += __shfl_xor_sync(0xffffffffu, im, 1);
+      if (i0 < pairs && (lane & 1) == 0) qm[i] = make_float2(re, im);
+    }
+    __syncthreads();  // G, gm, qm are ready; the planes are read
+    if (grp + gridDim.x < groups) load_group(grp + gridDim.x);
+
+    // x-contraction: each warp at most one 32 x 32 tile of Q (the host sees
+    // to it), held in registers while Q^T overwrites the folded modes
+    float acc[2][4][4] = {};
+    const bool mine = warp < units1;
+    const int m0 = (warp / ncol1) * 32, n0 = (warp % ncol1) * 32;
+    if (mine)
+      tile_product(acc, L.kr / 4, [&](Frags& f, int s) {
+        frags_xi(f, G, xh, xl, m0, n0, 4 * s, gq, tq, L.sg, L.sx);
+      });
+    __syncthreads();  // every read of the folded modes is done
+    if (mine) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + 16 * i + gq + 8 * h, n = n0 + 8 * j + 2 * tq;
+            if (r >= L.pp * my || n >= 2 * L.nx) continue;
+            const int q = r / my, ky = r - q * my, x = n >> 1;
+            float re = acc[i][j][2 * h], im = acc[i][j][2 * h + 1];
+            if (ky > 0) {  // the mirror of g[y'][-mx]: conj g[-y'][-mx] Gx[x][+mx]
+              const float2 a = gm[q * my + ky], b = gxm[x];
+              re = fmaf(a.x, b.x, fmaf(-a.y, b.y, re));
+              im = fmaf(a.x, b.y, fmaf(a.y, b.x, im));
+            }
+            *reinterpret_cast<float2*>(G + q * qsz + x * L.sq + 2 * ky) =
+                make_float2(re, im);
+          }
+    }
+    if (L.k2 > 2 * my)  // the y-contraction's depth padding must read zeros
+      for (int i = threadIdx.x; i < L.pp * L.m2 * (L.k2 - 2 * my); i += FT) {
+        const int row = i / (L.k2 - 2 * my), k = i - row * (L.k2 - 2 * my);
+        G[row * L.sq + 2 * my + k] = 0.f;
+      }
+    __syncthreads();  // Q^T is ready
+
+    // y-contraction, a plane at a time: out (m2 x n2) = Q^T (m2 x k2) @ B3
+    for (int u = warp; u < units2; u += FWARPS) {
+      const int q = u / per2, w = u - q * per2;
+      const long long p = grp * L.pp + q;
+      if (p >= B) continue;
+      const int mt = (w / ncol2) * 32, nt = (w % ncol2) * 32;
+      const float* Qp = G + q * qsz;
+      float acc2[2][4][4] = {};
+      tile_product(acc2, L.k2 / 8, [&](Frags& f, int s) {
+        frags_y(f, Qp, yh, yl, mt, nt, 8 * s, gq, tq, L.sq, L.sy);
+      });
+      float* op = out + p * (long long)L.nx * L.ny;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = mt + 16 * i + gq + 8 * h;
+          if (x >= L.nx) continue;
+          const float2 a = qm[q * L.nx + x];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int y = nt + 8 * j + 2 * tq;
+            if (y >= L.ny) continue;
+            const float2 b0 = gym[y], b1 = gym[y + 1];
+            const float v0 = fmaf(a.x, b0.x, fmaf(-a.y, b0.y, acc2[i][j][2 * h]));
+            const float v1 = fmaf(a.x, b1.x, fmaf(-a.y, b1.y, acc2[i][j][2 * h + 1]));
+            *reinterpret_cast<float2*>(op + x * L.ny + y) =
+                make_float2(scale * v0, scale * v1);
+          }
+        }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -621,6 +889,34 @@ int dft2d_modes_fused(const void* v, const void* FyT, const void* FxT, void* g,
       groups < (long long)sms * per_sm ? groups : (long long)sms * per_sm;
   modes_fused_kernel<<<(unsigned)blocks, FT, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)v, (const float*)FyT, (const float*)FxT, (float*)g, B, L);
+  return (int)cudaGetLastError();
+}
+
+// The fused dft2d_inverse: g (B, my2, mx2) c64 -> out (B, nx, ny) f32, with
+// the layout from the host (16 ints, as struct InvLayout) and `smem_bytes` of
+// dynamic shared memory. g must be 16-byte aligned. One persistent block an
+// SM, or as many as fit.
+int dft2d_inverse_fused(const void* g, const void* GxT, const void* GyT, void* out,
+                        long long B, float scale, const int* layout, int smem_bytes,
+                        void* stream) {
+  if (B == 0) return 0;
+  InvLayout L;
+  memcpy(&L, layout, sizeof(InvLayout));
+  cudaError_t e = cudaFuncSetAttribute(
+      inverse_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inverse_fused_kernel,
+                                                    FT, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (B + L.pp - 1) / L.pp;
+  const long long blocks =
+      groups < (long long)sms * per_sm ? groups : (long long)sms * per_sm;
+  inverse_fused_kernel<<<(unsigned)blocks, FT, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)GxT, (const float*)GyT, (float*)out, B, scale, L);
   return (int)cudaGetLastError();
 }
 

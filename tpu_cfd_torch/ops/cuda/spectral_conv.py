@@ -8,13 +8,15 @@ Replaces the TPU kernels of ``tpu_cfd/models/pallas_conv.py::make_dft2d_ops``
 - ``inverse``: complex ``(b, P, 2my, 2mx)`` -> ``scale · Re(Gx · g · Gyᵀ)``
   real ``(b, P, nx, ny)``.
 
-``modes`` is one fused kernel on the tensor cores (3xTF32 ``mma.sync``,
-the half of the modes that a real input does not mirror) where a plane, its
-intermediate and both transform matrices fit in one SM's shared memory
-(``fused_modes_layout``: 64² at m = 32 does, 256² does not), and
-otherwise, like ``inverse``, two passes of one batched complex GEMM in
-``csrc/spectral_conv.cu`` (see its header for the designs and the bound).
-The shape alone picks the route. The transform matrices come
+Each transform is one fused kernel on the tensor cores (3xTF32
+``mma.sync`` on half of the modes: those a real input does not mirror for
+``modes``, each mode folded with its mirror for ``inverse``, whose result
+keeps only the real part) where a few planes, their intermediate and both
+transform matrices fit in one SM's shared memory (``fused_modes_layout``,
+``fused_inverse_layout``: 64² at m = 32 and m = 12 do, 256² does not), and
+otherwise two passes of one batched complex GEMM in ``csrc/spectral_conv.cu``
+(see its header for the designs and the bound). The shape alone picks the
+route. The transform matrices come
 in a dict ``c`` of ``FyT (ny, 2my)``, ``FxT (nx, 2mx)``, ``GxT (2mx, nx)``
 and ``GyT (2my, ny)`` (``tpu_cfd_torch.models.fused_conv`` builds it).
 
@@ -39,8 +41,12 @@ import torch
 Tensor = torch.Tensor
 
 # Kernel launches per wrapper since the last reset_launch_counts();
-# "modes_fused" counts the "modes" launches that took the fused kernel.
-LAUNCHES = {"modes": 0, "modes_fused": 0, "inverse": 0}
+# "modes_fused" and "inverse_fused" count the launches that took the fused
+# kernel.
+LAUNCHES = {"modes": 0, "modes_fused": 0, "inverse": 0, "inverse_fused": 0}
+
+# warps of a fused kernel's block (csrc/spectral_conv.cu FWARPS)
+_WARPS = 8
 
 # shared memory one block may use on an H100 (227 KB)
 FUSED_SMEM_LIMIT = 232_448
@@ -78,6 +84,7 @@ def _stride(cols: int, r: int) -> int:
     return cols + (r - cols) % 32
 
 
+@functools.lru_cache(maxsize=None)
 def fused_modes_layout(nx: int, ny: int, my2: int, mx2: int):
     """The fused ``modes`` kernel's shared-memory layout for this shape, as
     ``(15 ints in the order of csrc/spectral_conv.cu's Layout, bytes)``, or
@@ -106,13 +113,59 @@ def fused_modes_layout(nx: int, ny: int, my2: int, mx2: int):
     sh, sx = _stride(max(n1 + 2, 2 * m2), 16), _stride(n2, 8)
     tiles = (m2 // 32) * (n2 // 32)
     layout = None
-    for pp in range(1, max(1, -(-8 // tiles)) + 1):
+    for pp in range(1, max(1, -(-_WARPS // tiles)) + 1):
         nbytes = 4 * (2 * pp * m1 * sv + 2 * k1 * sy + 2 * xr * sx
                       + pp * m1 * sh + 2 * ny + 2 * nx)
         if nbytes > FUSED_SMEM_LIMIT:
             break
         layout = (nx, ny, my2, mx2, pp, k1, m1, n1, m2, n2, xr, sv, sy, sh, sx), nbytes
     return layout
+
+
+@functools.lru_cache(maxsize=None)
+def fused_inverse_layout(nx: int, ny: int, my2: int, mx2: int):
+    """The fused ``inverse`` kernel's shared-memory layout for this shape, as
+    ``(16 ints in the order of csrc/spectral_conv.cu's InvLayout, bytes)``,
+    or ``None`` where the shape takes the two-pass route: an odd ``ny`` or
+    mode count, a Q tile for more than one per warp, or more than
+    ``FUSED_SMEM_LIMIT`` bytes even for one plane at a time.
+
+    Only the real part is kept, so each mode is folded with its mirror as
+    the planes are read, and the tensor cores take the ``my = my2 / 2`` rows
+    y' >= 0 of the folded modes. Shared memory holds ``pp`` planes of g as
+    they come (cp.async), one region for the folded modes (``r1 x sg``, the
+    ``pp`` planes' rows stacked) and then Q^T (``pp`` planes of ``m2 x sq``),
+    the hi and lo TF32 parts of GxT (``kr x sx``) and of B3 (``k2 x sy``,
+    GyT's first ``my`` rows in real form), row -my's Q of each plane, the
+    mirrors of column -mx, and Gx's column -mx and Gy's row -my. The strides
+    are 4, 8, 4 and 8 mod 32 words. Each warp holds at most one tile of Q
+    in registers while Q^T overwrites the folded modes, so ``pp`` stops at
+    8 tiles of Q; up to 8 planes, it is the count with the fewest rounds of
+    warp tiles per plane, the fewer planes on a tie.
+    """
+    if ny % 2 or my2 % 2 or mx2 % 2:
+        return None
+    my = my2 // 2
+    kr, n1, m2 = _up(mx2, 4), _up(2 * nx, 32), _up(nx, 32)
+    k2, n2 = _up(2 * my, 8), _up(ny, 32)
+    sg, sx, sq, sy = _stride(2 * kr, 4), _stride(n1, 8), _stride(k2, 4), _stride(n2, 8)
+    best = None
+    for pp in range(1, _WARPS + 1):
+        r1 = _up(pp * my, 32)
+        tiles_x, tiles_y = (r1 // 32) * (n1 // 32), pp * (m2 // 32) * (n2 // 32)
+        if tiles_x > _WARPS:
+            break
+        gsz = _up(max(r1 * sg, pp * m2 * sq), 4)
+        nbytes = 4 * (pp * 2 * my2 * mx2 + gsz + 2 * kr * sx + 2 * k2 * sy
+                      + 2 * (pp * nx + pp * my + nx + ny))
+        if nbytes > FUSED_SMEM_LIMIT:
+            break
+        # rounds of 8 warp tiles, each as deep as its contraction, per plane
+        cost = (-(-tiles_x // _WARPS) * 2 * kr + -(-tiles_y // _WARPS) * k2) / pp
+        if best is None or cost < best[0]:
+            ints = (nx, ny, my2, mx2, pp, r1, kr, n1, m2, k2, n2, sg, sx, sq, sy, gsz)
+            best = cost, (ints, nbytes)
+    return None if best is None else best[1]
 
 
 # --------------------------------------------------------------- kernels ----
@@ -126,8 +179,10 @@ def _lib():
     lib.dft2d_modes.argtypes = [P] * 5 + [L, I, I, I, I, P]
     lib.dft2d_modes_fused.argtypes = [P] * 4 + [L, P, I, P]
     lib.dft2d_inverse.argtypes = [P] * 5 + [L, I, I, I, I, F, P]
-    lib.dft2d_modes.restype = lib.dft2d_modes_fused.restype = I
-    lib.dft2d_inverse.restype = I
+    lib.dft2d_inverse_fused.argtypes = [P] * 4 + [L, F, P, I, P]
+    for fn in (lib.dft2d_modes, lib.dft2d_modes_fused, lib.dft2d_inverse,
+               lib.dft2d_inverse_fused):
+        fn.restype = I
     return lib
 
 
@@ -193,19 +248,47 @@ def _launch_modes(v: Tensor, c: dict) -> Tensor:
     return _launch_modes_fused(v, c, layout)
 
 
-def _launch_inverse(g: Tensor, scale: float, c: dict) -> Tensor:
+def _check_inverse(g: Tensor, c: dict):
     b, P, my2, mx2 = g.shape
     nx, ny = c["GxT"].shape[1], c["GyT"].shape[1]
     _check(g, (b, P, my2, mx2), torch.complex64, g.device, "modes")
     _check(c["GxT"], (mx2, nx), torch.complex64, g.device, "GxT")
     _check(c["GyT"], (my2, ny), torch.complex64, g.device, "GyT")
-    q = torch.empty((b, P, my2, nx), dtype=torch.complex64, device=g.device)
     out = torch.empty((b, P, nx, ny), dtype=torch.float32, device=g.device)
+    return b * P, nx, ny, my2, mx2, out
+
+
+def _launch_inverse_two_pass(g: Tensor, scale: float, c: dict) -> Tensor:
+    B, nx, ny, my2, mx2, out = _check_inverse(g, c)
+    q = torch.empty((B, my2, nx), dtype=torch.complex64, device=g.device)
     _ok(_lib().dft2d_inverse(g.data_ptr(), c["GxT"].data_ptr(), c["GyT"].data_ptr(),
-                             q.data_ptr(), out.data_ptr(), b * P, nx, ny, my2,
+                             q.data_ptr(), out.data_ptr(), B, nx, ny, my2,
                              mx2, float(scale), _stream(g.device)), "dft2d_inverse")
     LAUNCHES["inverse"] += 1
     return out
+
+
+def _launch_inverse_fused(g: Tensor, scale: float, c: dict, layout) -> Tensor:
+    B, nx, ny, my2, mx2, out = _check_inverse(g, c)
+    if g.data_ptr() % 16:  # the kernel copies planes of g in 16-byte pieces
+        g = g.clone()
+    ints, nbytes = layout
+    _ok(_lib().dft2d_inverse_fused(g.data_ptr(), c["GxT"].data_ptr(),
+                                   c["GyT"].data_ptr(), out.data_ptr(), B,
+                                   float(scale), (ctypes.c_int * len(ints))(*ints),
+                                   nbytes, _stream(g.device)), "dft2d_inverse_fused")
+    LAUNCHES["inverse"] += 1
+    LAUNCHES["inverse_fused"] += 1
+    return out
+
+
+def _launch_inverse(g: Tensor, scale: float, c: dict) -> Tensor:
+    """The fused kernel where the shape fits in shared memory, else two passes."""
+    layout = fused_inverse_layout(c["GxT"].shape[1], c["GyT"].shape[1], g.shape[-2],
+                                  g.shape[-1])
+    if layout is None:
+        return _launch_inverse_two_pass(g, scale, c)
+    return _launch_inverse_fused(g, scale, c, layout)
 
 
 def _dispatch(t: Tensor, plain, kernel):

@@ -20,8 +20,13 @@ kernel or raises. Each wrapper counts its launches in ``LAUNCHES``.
 ``_fused_rollout_plain`` is the whole rollout in plain PyTorch.
 
 On the card every precision mode computes in fp32 FFMA, at least the
-accuracy ``"highest"`` asks for. The rollout is forward-only: taking a
-gradient through it raises, as in the JAX package.
+accuracy ``"highest"`` asks for: each kernel is a register-tiled product on
+the CUDA cores, its operands staged in shared memory by cp.async (the
+``.cu`` header gives the tiles). ``constants`` lays the operands out for
+them (``GT``, ``FT``, ``cf4``, ``il``) beside the plain versions' matrices;
+``advect_layout`` picks K2's rows a block and shared-memory layout from the
+shape. The rollout is forward-only: taking a gradient through it raises, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,9 +54,13 @@ _GAMMAS = (0.1496590219993, 0.3792103129999, 0.8229550293869,
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"inverse_first": 0, "advect": 0, "forward_first": 0}
 
-# Physical rows per K2 block and the shared memory a block may use
-# (csrc/spectral_step.cu TX; H100: 232,448 bytes).
-_K2_ROWS = 8
+# K2's template instances (csrc/spectral_step.cu advect_kernel): physical
+# rows a block and the most passes of 4 x column-groups floats over the 2m
+# columns of T that a thread holds; its 256 threads, the depth of an IL
+# tile, the slots of its cp.async ring and their floats; the shared memory
+# a block may use on an H100 (232,448 bytes).
+_K2_INSTANCES = ((32, 4), (16, 8), (8, 12))
+_K2_THREADS, _K2_KC, _K2_STAGES, _K2_SLOT = 256, 16, 3, 1024
 _MAX_SMEM = 232448
 
 
@@ -131,9 +140,13 @@ def _constants(layout: str, n: int, step, viscosity, drag, dt, device: str):
     # u = i(-tky·ilap)ŵ, v = i(tkx·ilap)ŵ, ∂ω/∂x = i·tkx·ŵ, ∂ω/∂y = i·tky·ŵ
     cf = np.stack([-tky * ilap, tkx * ilap, tkx, tky])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    # the kernels' operand layouts: G and F transposed, the four fields'
+    # multipliers of a mode side by side, IL's rows il_re and il_im interleaved
+    il = np.stack([M["inv_last_re"], M["inv_last_im"]], axis=1).reshape(2 * m, n)
     return {
         "n": n, "R": G.shape[1], "m": m,
         "G": t(G), "F": t(F), "cf": t(cf),
+        "GT": t(G.T), "FT": t(F.T), "cf4": t(np.moveaxis(cf, 0, -1)), "il": t(il),
         "il_re": t(M["inv_last_re"]), "il_im": t(M["inv_last_im"]),
         "fl": t(_cplx(M["fwd_last_re"], M["fwd_last_im"])),
         "filt": t(hc["filt"]), "lin": t(hc["lin"]), "dens": t(hc["dens"]),
@@ -174,7 +187,7 @@ def _lib():
     lib = _build.load("spectral_step")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spectral_inverse_first.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.spectral_advect.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    lib.spectral_advect.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.spectral_forward_first.argtypes = (
         [P] * 8 + [I, I, I, I, I, F, F, F, P])
     for fn in (lib.spectral_inverse_first, lib.spectral_advect,
@@ -214,7 +227,7 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
     _check(w, (b, R, m), c["G"].device, "state")
     A = _out(out, (b, 4, n, m), w)
     _ok(_lib().spectral_inverse_first(
-        w.data_ptr(), c["G"].data_ptr(), c["cf"].data_ptr(), A.data_ptr(),
+        w.data_ptr(), c["GT"].data_ptr(), c["cf4"].data_ptr(), A.data_ptr(),
         b, R, m, n, _stream(w.device)), "spectral_inverse_first")
     LAUNCHES["inverse_first"] += 1
     return A
@@ -223,11 +236,13 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
 def _launch_advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
     b, n, m = A.shape[0], c["n"], c["m"]
     _check(A, (b, 4, n, m), c["G"].device, "first-axis output")
+    layout = advect_layout(n, m, block_cols)
+    if layout is None:
+        raise ValueError(_smem_message(n, m, block_cols))
     T = _out(out, (b, n, m), A)
     _ok(_lib().spectral_advect(
-        A.data_ptr(), c["il_re"].data_ptr(), c["il_im"].data_ptr(),
-        c["fl"].data_ptr(), T.data_ptr(), b, n, m, block_cols,
-        _stream(A.device)), "spectral_advect")
+        A.data_ptr(), c["il"].data_ptr(), c["fl"].data_ptr(), T.data_ptr(), b, n,
+        m, block_cols, *layout, _stream(A.device)), "spectral_advect")
     LAUNCHES["advect"] += 1
     return T
 
@@ -240,7 +255,7 @@ def _launch_forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
     _check(h, (b, R, m), dev, "stage memory")
     _check(c["forcing"], (R, m), dev, "forcing")
     _ok(_lib().spectral_forward_first(
-        T.data_ptr(), c["F"].data_ptr(), c["filt"].data_ptr(),
+        T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
         c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
         h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
         c["dt_gammas"][k], c["mus"][k], _stream(w.device)),
@@ -307,11 +322,51 @@ class _ForwardOnly(torch.autograd.Function):
         )
 
 
+@functools.lru_cache(maxsize=None)
+def advect_layout(n: int, m: int, jc: int):
+    """K2's instance and shared-memory size for this shape and column chunk,
+    as ``(rows a block, passes, bytes)``, or ``None`` where no instance fits
+    in one block's shared memory.
+
+    A block keeps its rows of the four fields (``4 x rows x 2m`` floats, 2m
+    padded to 16, row stride ``4 rows + 4``), a ring of 3 slots and the
+    advection term of one chunk and ``fr`` zero rows (``(jc + fr) x (rows +
+    1)``). A slot holds a 16 x 64 tile of IL or ``fr`` rows of FL padded to
+    the passes' columns, ``fr`` the largest power of two up to 16 that keeps
+    an FL tile within the slot's 1024 floats (or one row). The most rows a
+    block whose thread's passes over T fit its instance and whose layout
+    fits are taken; at 256² Galerkin two blocks share an SM.
+    """
+    m2 = 2 * m
+    k1p = -(-m2 // _K2_KC) * _K2_KC
+    for tx, npmax in _K2_INSTANCES:
+        cols = 4 * (_K2_THREADS // min(tx, 16))  # columns of T a pass covers
+        passes = -(-m2 // cols)
+        if passes > npmax:
+            continue
+        w2 = passes * cols
+        fr = 1
+        while fr < 16 and 2 * fr * w2 <= _K2_SLOT:
+            fr *= 2
+        slot = max(_K2_SLOT, fr * w2)
+        nbytes = 4 * (k1p * (4 * tx + 4) + _K2_STAGES * slot + (jc + fr) * (tx + 1))
+        if nbytes <= _MAX_SMEM:
+            return tx, passes, nbytes
+    return None
+
+
+def _smem_message(n: int, m: int, jc: int) -> str:
+    return (f"spectrum width m={m} with block_cols={jc} at n={n} needs more than "
+            f"{_MAX_SMEM} bytes of shared memory per block of the advection "
+            "kernel, even at 8 rows a block")
+
+
 def resolve_block_cols(block_cols, n: int, m: int) -> int:
     """Physical-column chunk width of K2 (``advect``).
 
     ``"auto"`` takes the largest of 64, 32, ... dividing n; ``None`` takes
-    whole rows (n, the resident layout); an int must divide n.
+    whole rows (n, the resident layout); an int must divide n. Raises where
+    K2 has no layout for the shape (``advect_layout``).
     """
     if block_cols == "auto":
         block_cols = next(c for c in (64, 32, 16, 8, 4, 2, 1) if n % c == 0)
@@ -319,12 +374,8 @@ def resolve_block_cols(block_cols, n: int, m: int) -> int:
         block_cols = n
     if n % block_cols:
         raise ValueError(f"block_cols={block_cols} must divide n={n}")
-    smem = 5 * _K2_ROWS * m * 8 + _K2_ROWS * block_cols * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"spectrum width m={m} with block_cols={block_cols} needs {smem} "
-            f"bytes of shared memory per block, more than {_MAX_SMEM}"
-        )
+    if advect_layout(n, m, block_cols) is None:
+        raise ValueError(_smem_message(n, m, block_cols))
     return block_cols
 
 
