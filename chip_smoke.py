@@ -31,17 +31,22 @@ printing no result, when either is missing or any phase fails:
 6. drives the second main path, ``python -m tpu_cfd_torch.train.train`` at
    the McWilliams recipe (16,469,791 parameters, batch 64, 2 epochs) on
    that dataset, checks the losses, and checks from the launch counters
-   that every SpectralConvS and PointwiseFFN ran through the kernels and
-   every ``dft2d_modes`` and ``dft2d_inverse`` through its fused one;
+   that every PointwiseFFN ran through its kernel and every SpectralConvS
+   took the route ``fused_pair_wins`` names for the recipe's shape (the DFT
+   kernel pair, each transform on its fused kernel, or the ``torch.fft``
+   arithmetic);
 7. times every kernel beside its bound (by bytes, or by operations at the
-   faster of FFMA and 3xTF32 on the tensor cores, both kept), its plain
+   faster of FFMA and 3xTF32 on the tensor cores, both kept; the FFN also by
+   its device time, without the wrapper's host time), its plain
    version and the library call (the DFT pair at main path 3's m=12 too,
    and each transform on its two-pass route beside the fused one), the
    RK4-CN stage's three kernels in both layouts and the rollouts beside
    ``torch.fft`` in three rounds with their spread, the SFNO train step
-   by five routes (kernels,
+   in three rounds by six routes (the default, the DFT kernel pair forced,
    ``impl="fft"``, plain versions, bf16 activations, remat: the last checks
-   the doubled forward launches), the Adam step over all leaves of both
+   the doubled forward launches), and checks that the default is no slower
+   than the faster of the kernel pair and ``impl="fft"`` within the rounds'
+   spread, the Adam step over all leaves of both
    SFNOs (through the table main path 3 keeps, through ``adam_step_leaves``,
    leaf by leaf) beside ``torch.optim.Adam`` fused and foreach, and the
    FNO3d step;
@@ -127,6 +132,18 @@ def plain_versions(sc, ffn_ops):
         sc.modes, sc.inverse, ffn_ops.ffn_forward = saved
 
 
+@contextlib.contextmanager
+def kernel_route(sfno_mod):
+    """Sends every fp32 same-mesh SpectralConvS through the DFT kernel pair,
+    whatever ``fused_pair_wins`` answers for its shape."""
+    saved = sfno_mod.fused_pair_wins
+    sfno_mod.fused_pair_wins = lambda *shape: True
+    try:
+        yield
+    finally:
+        sfno_mod.fused_pair_wins = saved
+
+
 def _bound(flops: float, nbytes: float, product: bool = True) -> dict:
     """The least time the card could take: the bytes over the HBM rate or the
     operations over the fastest fp32-accurate rate, whichever is longer. A
@@ -154,7 +171,8 @@ def main() -> int:
     from tpu_cfd_torch import grids
     from tpu_cfd_torch.data import generate
     from tpu_cfd_torch.models import FNO3d, SFNO, init_like_flax, make_fno3d_input
-    from tpu_cfd_torch.models.fused_conv import _dft2d_constants
+    from tpu_cfd_torch.models import sfno as sfno_mod
+    from tpu_cfd_torch.models.fused_conv import _dft2d_constants, fused_pair_wins
     from tpu_cfd_torch.ops import dft2d
     from tpu_cfd_torch.ops.cuda import _build, adam as adam_ops, ffn as ffn_ops
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
@@ -208,6 +226,21 @@ def main() -> int:
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / iters
+
+    def device_ms(fn, kernel: str, iters: int = 20) -> float:
+        """ms a call on the device of the kernels whose name holds ``kernel``
+        (torch.profiler): without the wrapper's host time, which a kernel of
+        a few tens of microseconds timed back to back would show instead."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if kernel in e.key) / 1e3 / iters
 
     # -- 3a. whole rollouts: kernel vs plain, both layouts ------------------
     what4 = initial_spectrum(4)
@@ -595,9 +628,14 @@ def main() -> int:
     _require(run["n_params"] == RECIPE_PARAMS, f"parameter count {run['n_params']}")
     _require(all(np.isfinite([hh["train"] for hh in hist] + [hh["val"] for hh in hist]))
              and len(hist) == 2, "finite train and val losses")
+    # the route fused_pair_wins names for the recipe's SpectralConvS: the DFT
+    # kernel pair (6 launches of each transform a train step) or torch.fft (none)
+    pair = int(fused_pair_wins(rn, rn, rm, rm, rb * rt * rw))
+    print(f"main path 2: SpectralConvS at the recipe ({rb * rt * rw} planes of {rn}^2, "
+          f"m {rm}) takes {'the DFT kernel pair' if pair else 'torch.fft'}", flush=True)
     train_steps, val_batches = 4, 2
-    per_step = {"modes": 6, "inverse": 6, "ffn": 4}
-    per_eval = {"modes": 3, "inverse": 3, "ffn": 4}
+    per_step = {"modes": 6 * pair, "inverse": 6 * pair, "ffn": 4}
+    per_eval = {"modes": 3 * pair, "inverse": 3 * pair, "ffn": 4}
     for key in per_step:
         want = train_steps * per_step[key] + val_batches * per_eval[key]
         _require(train_launches[key] == want,
@@ -729,8 +767,10 @@ def main() -> int:
         ffn_other[name] = {
             "max_abs_err": case["err_bf16" if bf16 else "err"], "rows": case["rows"],
             "width": case["width"], "act": case["act"], "ms": cuda_ms(kern, 20),
+            "device_ms": device_ms(kern, "ffn_kernel"),
             "plain_ms": cuda_ms(plain, 20), **_bound(flops, nbytes)}
-        print(f"time pointwise_ffn {name}: {ffn_other[name]['ms']:.4f} ms, plain "
+        print(f"time pointwise_ffn {name}: {ffn_other[name]['ms']:.4f} ms (device "
+              f"{ffn_other[name]['device_ms']:.4f}), plain "
               f"{ffn_other[name]['plain_ms']:.4f} ms, bound "
               f"{ffn_other[name]['bound_ms']:.4f} ms ({ffn_other[name]['bound_by']})",
               flush=True)
@@ -738,6 +778,8 @@ def main() -> int:
         r = results[name]
         if name not in kernels:
             r["ms"] = cuda_ms(kern, 20)
+        if name.startswith("pointwise_ffn"):
+            r["device_ms"] = device_ms(kern, "ffn_kernel")
         r["plain_ms"] = cuda_ms(plain, 20)
         r["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
         r.update(_bound(flops, nbytes))
@@ -787,7 +829,8 @@ def main() -> int:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         tf = "" if r.get("bound_tf32x3_ms") is None else (
             f"; FFMA {r['bound_ffma_ms']:.4f}, 3xTF32 {r['bound_tf32x3_ms']:.4f}")
-        print(f"time {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        dev_ms = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
+        print(f"time {name}: {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}{tf})",
               flush=True)
     print(f"time pointwise_ffn as F.linear -> gelu -> F.linear (information): "
@@ -870,8 +913,9 @@ def main() -> int:
     # every PointwiseFFN twice, every SpectralConvS's modes twice, and its
     # inverse once, since the recomputation stops at the block's last saved
     # tensor, which the inverse transform only consumes
-    route_launches = {"kernels": per_step, "bf16": per_step,
-                      "remat": {"modes": 9, "inverse": 6, "ffn": 8}}
+    route_launches = {"default": per_step, "bf16": per_step,
+                      "dft_kernels": {"modes": 6, "inverse": 6, "ffn": 4},
+                      "remat": {"modes": 9 * pair, "inverse": 6 * pair, "ffn": 8}}
 
     def train_route(route: str) -> dict:
         model = train.build_model(train.get_parser().parse_args(
@@ -890,12 +934,16 @@ def main() -> int:
         sc.reset_launch_counts()
         ffn_ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            loss = step(inp, target)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / iters
-        counts = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
+        rounds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                loss = step(inp, target)
+            torch.cuda.synchronize()
+            rounds.append(1e3 * (time.perf_counter() - t0) / iters)
+        rounds.sort()
+        ms = rounds[1]
+        counts = {k: v // 3 for k, v in {**sc.LAUNCHES, **ffn_ops.LAUNCHES}.items()}
         _require(bool(torch.isfinite(loss)), f"finite loss on the {route} route")
         for key, want in route_launches.get(route, {}).items():
             _require(counts[key] == iters * want,
@@ -904,22 +952,39 @@ def main() -> int:
         for key in ("modes", "inverse"):
             _require(counts[key + "_fused"] == counts[key],
                      f"every {key} launch fused on the {route} route")
-        row = {"route": route, "ms_per_step": ms, "samples_per_s": rb / (ms * 1e-3),
+        row = {"route": route, "ms_per_step": ms, "rounds_ms": rounds,
+               "samples_per_s": rb / (ms * 1e-3),
                "launches_per_step": {k: v / iters for k, v in counts.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "loss": float(loss)}
-        print(f"time train step {route}: {ms:.3f} ms/step, {row['samples_per_s']:.1f} "
+        print(f"time train step {route}: {ms:.3f} ms/step (rounds "
+              f"{' / '.join(f'{r:.3f}' for r in rounds)}), {row['samples_per_s']:.1f} "
               f"samples/s, peak {row['peak_gib']:.2f} GiB, launches/step "
               f"{row['launches_per_step']}", flush=True)
         row["profile"] = profile_steps(route, lambda: step(inp, target), 3)
         return row
 
-    for route in ("kernels", "fft", "bf16", "remat"):
+    for route in ("default", "fft", "bf16", "remat"):
         train_rows.append(train_route(route))
-    with plain_versions(sc, ffn_ops):
-        train_rows.append(train_route("plain"))
+    with kernel_route(sfno_mod):
+        train_rows.append(train_route("dft_kernels"))
+        # the kernel route's arithmetic in plain PyTorch (cuBLAS)
+        with plain_versions(sc, ffn_ops):
+            train_rows.append(train_route("plain"))
     print(f"time train step: kernels' bound {kernel_bound_ms:.3f} ms/step "
           f"(6 modes + 6 inverse + 4 ffn launches)", flush=True)
+    # the default route is the faster of the kernel pair and torch.fft, within
+    # the spread of the three rounds of each
+    by_route = {r["route"]: r for r in train_rows}
+    compared = [by_route[k] for k in ("default", "dft_kernels", "fft")]
+    spread_ms = max(r["rounds_ms"][-1] - r["rounds_ms"][0] for r in compared)
+    best_ms = min(r["ms_per_step"] for r in compared[1:])
+    print(f"time train step: default {compared[0]['ms_per_step']:.3f} ms/step, kernel "
+          f"pair {compared[1]['ms_per_step']:.3f}, impl=fft {compared[2]['ms_per_step']:.3f}, "
+          f"largest spread of their rounds {spread_ms:.3f}", flush=True)
+    _require(compared[0]["ms_per_step"] <= best_ms + spread_ms,
+             "the default SpectralConvS route is no slower than the faster of the "
+             "kernel pair and impl=fft")
 
     # the FNO3d train step at the example's defaults (cuFFT and cuBLAS only)
     fno = FNO3d(rm, rm, RECIPE["modes_t"], width=rw, input_channel=rt)
@@ -1034,7 +1099,8 @@ def main() -> int:
                 "adam_step": "scripts/opt_layout_r4.py:119"}
     shapes = {
         "spectral_step": f"main path 1: b{B} {N}^2 float32",
-        "spectral_conv": f"main path 2: b{rb} {rt * rw} planes {rn}^2 m{rm} float32",
+        "spectral_conv": f"the recipe's: b{rb} {rt * rw} planes {rn}^2 m{rm} float32 "
+                         "(launches: main paths 2 and 3)",
         **{name: f"main path 3: b{SWEEP_BATCH} {rt * sw} planes {rn}^2 m{sm} float32"
            for name in ("dft2d_modes_sweep", "dft2d_inverse_sweep")},
         "pointwise_ffn": f"main path 2: {ffn_recipe['rows']} rows {rw}->{4 * rw}->{rw} "
@@ -1043,9 +1109,12 @@ def main() -> int:
                               "ReLU bfloat16",
         "adam_step": f"main path 3: the {LEAVES} leaves of its SFNO, {SWEEP_PARAMS} "
                      "float32 parameters, one step"}
+    # the DFT pair at the recipe's shape: its launches on main path 2 (none
+    # where the recipe's SpectralConvS takes torch.fft) and on main path 3,
+    # which runs the same two kernels at the sweep's shape
     launches = {**{("spectral_step", k): v for k, v in gen_launches.items()},
-                **{("spectral_conv", k): v for k, v in train_launches.items()
-                   if k in sc.LAUNCHES},
+                **{("spectral_conv", k): v + sweep_launches[k] for k, v in
+                   train_launches.items() if k in sc.LAUNCHES},
                 ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"],
                 ("spectral_conv", "inverse_fused_sweep"): sweep_launches["inverse_fused"],
                 ("ffn", "ffn"): train_launches["ffn"],
@@ -1059,7 +1128,10 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "bound_ffma_ms": r["bound_ffma_ms"],
          "bound_tf32x3_ms": r["bound_tf32x3_ms"], "library_ms": r["library_ms"],
-         "shape": shapes.get(name, shapes.get(src))}
+         "shape": shapes.get(name, shapes.get(src)),
+         **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
+         **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key]}}
+            if name in ("dft2d_modes", "dft2d_inverse") else {})}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
         "adam_steps": adam_rows, "two_pass_ms": two_pass, "timed_x3": spread,

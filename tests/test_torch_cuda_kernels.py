@@ -203,6 +203,39 @@ def test_ffn_kernel_bf16_rows_match_plain(dev, k, h):
     assert _rel_err(got.float(), want.float()) <= 2.0 ** -7
 
 
+# K and K_out in {4, 10, 20, 64}, apart and equal; H a multiple of 8 and not
+@pytest.mark.parametrize("k,h,k_out", [(4, 16, 4), (10, 40, 10), (20, 80, 20),
+                                       (64, 100, 64), (10, 37, 20), (64, 36, 4),
+                                       (4, 12, 64)])
+@pytest.mark.parametrize("rows", [1, 17, 1000])  # none a multiple of 16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_kernel_shapes_match_plain(dev, k, h, k_out, rows, dtype):
+    gen = torch.Generator(device=dev).manual_seed(k * h + rows)
+    x = (2 * torch.randn(rows, k, device=dev, generator=gen)).to(dtype)
+    w1, b1 = 0.5 * torch.randn(h, k, device=dev, generator=gen), torch.randn(h, device=dev)
+    w2 = 0.3 * torch.randn(k_out, h, device=dev, generator=gen)
+    b2 = torch.randn(k_out, device=dev)
+    tffn.reset_launch_counts()
+    got = tffn.ffn_forward(x, w1, b1, w2, b2, "GELU")
+    want = tffn._ffn_plain(x, w1, b1, w2, b2, "GELU")
+    torch.cuda.synchronize()
+    assert tffn.LAUNCHES["ffn"] == 1
+    assert got.dtype == want.dtype == dtype and got.shape == (rows, k_out)
+    assert _rel_err(got.float(), want.float()) <= (
+        1e-5 if dtype == torch.float32 else 2.0 ** -7)
+
+
+def test_ffn_kernel_takes_rows_that_are_not_16_byte_aligned(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn(1 + 300 * 10, device=dev, generator=gen)
+    x = buf[1:].view(300, 10)
+    assert x.data_ptr() % 16
+    w1, b1 = 0.5 * torch.randn(40, 10, device=dev, generator=gen), torch.randn(40, device=dev)
+    w2, b2 = 0.3 * torch.randn(10, 40, device=dev, generator=gen), torch.randn(10, device=dev)
+    got = tffn.ffn_forward(x, w1, b1, w2, b2, "ReLU")
+    assert _rel_err(got, tffn._ffn_plain(x, w1, b1, w2, b2, "ReLU")) < 1e-5
+
+
 @pytest.mark.parametrize("offset", [0, 1])  # 1: no pointer is 16-byte aligned
 @pytest.mark.parametrize("n", [1, 3, 10, 4097, 1_024_000])
 def test_adam_kernel_matches_plain(dev, n, offset):

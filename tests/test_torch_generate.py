@@ -114,6 +114,33 @@ def test_cli_writes_loadable_dataset_and_resumes(tmp_path):
     np.testing.assert_array_equal(resumed["vorticity"], fresh["vorticity"])
 
 
+def test_integrator_without_the_kernel_takes_the_fastest_unfused_route(tmp_path):
+    """Where the fused kernel cannot run the integrator (the fno dataset's
+    IMEX order 2), the default is the fastest route without it in the H100
+    table: torch.fft at every measured point, not the TPU's dft_galerkin."""
+    for n, b in teq._H100_MS_PER_STEP:
+        assert tgen.default_fft_impl(n, b, False, True, fused_ok=False) == "fft"
+    assert tgen.default_fft_impl(256, 32, False, True, fused_ok=True) == "dft_galerkin_fused"
+    assert tgen.default_fft_impl(256, 32, True, True, fused_ok=True) == "fft"
+    # through the CLI's generation loop with an IMEX order-2 solver
+    from tpu_cfd_torch.data import data_utils
+
+    parser = data_utils.get_args_ns2d("IMEX order 2")
+    parser.set_defaults(diam=2 * np.pi, forcing="none")
+    args = parser.parse_args(_cli(tmp_path, 2))
+
+    def make_ic(sample_ids, grid, dtype, device):
+        gen = torch.Generator().manual_seed(0)
+        return 1e2 * torch.randn((len(sample_ids), *grid.shape), dtype=dtype,
+                                 generator=gen) / grid.shape[0]
+
+    path = tgen.run_generation(args, make_ic, solver=teq.IMEXStepper(order=2),
+                               example_name="IMEX2")
+    with open(path + ".meta.json") as f:
+        assert json.load(f)["fft_impl"] == "fft"
+    assert np.isfinite(jdatasets.load_trajectory_dict(path)["vorticity"]).all()
+
+
 def test_cli_double_runs_fp64_fft(tmp_path):
     path = tgen.main_mcwilliams(_cli(tmp_path, 2, "--double", "--extra-vars"))
     data = jdatasets.load_trajectory_dict(path)

@@ -168,6 +168,130 @@ def test_sfno_forward_and_grads(out_dim):
         assert _rel_err(p.grad, g_j[name]) < 1e-4, name
 
 
+def _count_dft_launches(monkeypatch):
+    """Counts the DFT pair's forward transforms (modes) as they run."""
+    from tpu_cfd_torch.ops.cuda import spectral_conv as sc
+
+    counts = {"modes": 0}
+
+    def modes(*args, _f=sc.modes):
+        counts["modes"] += 1
+        return _f(*args)
+
+    monkeypatch.setattr(sc, "modes", modes)
+    return counts
+
+
+@pytest.mark.parametrize("out_dim", [1, 2])
+def test_sfno_forward_and_grads_on_the_fft_route(out_dim, monkeypatch):
+    """The same parity (forward 1e-5, gradients 1e-4) where ``fused_pair_wins``
+    sends every SpectralConvS through the ``impl="fft"`` arithmetic."""
+    from tpu_cfd_torch.models import sfno as tsfno
+
+    monkeypatch.setattr(tsfno, "fused_pair_wins", lambda *shape: False)
+    counts = _count_dft_launches(monkeypatch)
+    jmod, tmod, params, v = _sfno_pair(out_dim)
+    r = _field(*((B, N, N, NT) + ((2,) if out_dim == 2 else ())), seed=5)
+
+    def loss(p):
+        out = jmod.apply(p, v)
+        return (out * r).sum(), out
+
+    (_, out_j), g_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    out_t = tmod(_t(v))
+    (out_t * _t(r)).sum().backward()
+    assert counts["modes"] == 0
+    assert _rel_err(out_t.detach(), out_j) < 1e-5
+    g_j = convert.state_dict_from_flax("SFNO", jax.device_get(g_j))
+    for name, p in tmod.named_parameters():
+        assert _rel_err(p.grad, g_j[name]) < 1e-4, name
+
+
+@pytest.mark.parametrize("batch,modes,route", [
+    (2, (4, 4, 3), "kernels"),     # 2m < n: the pair at every plane count
+    (120, (4, 4, 3), "kernels"),
+    (2, (8, 8, 3), "kernels"),     # all modes kept: the pair up to 4,525 planes
+    (120, (8, 8, 3), "fft"),       # 120 x 10 x 4 = 4,800 planes
+])
+def test_spectral_conv_s_route_follows_the_measurement(batch, modes, route, monkeypatch):
+    """On both sides of the H100 crossover the conv takes the route that
+    ``fused_pair_wins`` names for its shape, and both agree with flax's
+    SpectralConvS to 1e-5."""
+    from tpu_cfd_torch.models.fused_conv import fused_pair_wins
+
+    assert fused_pair_wins(N, N, modes[0], modes[1], batch * NT * W) == (route == "kernels")
+    counts = _count_dft_launches(monkeypatch)
+    jmod = jm.SpectralConvS(in_channels=W, out_channels=W, modes=modes, impl="dft")
+    tmod = tm.SpectralConvS(W, W, modes)
+    v = _field(batch, N, N, NT, W)
+    params = _pair(jmod, tmod, "SpectralConv", (v,))
+    got = tmod(_t(v)).detach()
+    assert counts["modes"] == (route == "kernels")
+    assert _rel_err(got, _apply(jmod, params, v)) < 1e-5
+
+
+@pytest.mark.parametrize("batch,modes,helmholtz,route", [
+    (2, (4, 4, 3), False, "dft"),    # modes a quarter of the mesh: the einsums
+    (30, (4, 4, 3), False, "dft"),
+    (2, (8, 8, 3), True, "dft"),     # all modes, 14 planes: the einsums
+    (30, (8, 8, 3), False, "fft"),   # 30 x 7 x 4 = 840 planes: torch.fft
+    (60, (8, 8, 3), True, "fft"),    # 60 x 7 x 2 = 840, Helmholtz on the fft path
+])
+def test_spectral_conv_t_route_follows_the_measurement(batch, modes, helmholtz, route,
+                                                       monkeypatch):
+    """SpectralConvT with impl="dft" takes the FFT path where
+    ``dft_apply_wins`` says so for its shape, and agrees with flax's dense
+    DFT route to 1e-5 on both sides (temporal padding, resampled steps)."""
+    from tpu_cfd_torch.models.sfno import SpectralConvT, dft_apply_wins
+
+    d = 2 if helmholtz else W
+    assert dft_apply_wins(N, N, modes[0], modes[1], batch * 7 * d) == (route == "dft")
+    taken = []
+    monkeypatch.setattr(SpectralConvT, "_dft_apply", lambda self, *a, _f=SpectralConvT.
+                        _dft_apply, **k: taken.append("dft") or _f(self, *a, **k))
+    kw = dict(modes=modes, bias=True, delta=0.1, impl="dft")
+    post = dict(j=jm.HelmholtzProjection(diam=1.0), t=tm.HelmholtzProjection(diam=1.0)
+                ) if helmholtz else dict(j=None, t=None)
+    jmod = jm.SpectralConvT(in_channels=d, out_channels=d, temporal_padding=True,
+                            postprocess=post["j"], **kw)
+    tmod = tm.SpectralConvT(d, d, temporal_padding=True, postprocess=post["t"], **kw)
+    v = _field(batch, N, N, 7, d)
+    params = _pair(jmod, tmod, "SpectralConv", (v,), out_steps=12)
+    got = tmod(_t(v), out_steps=12)
+    assert taken == (["dft"] if route == "dft" else [])
+    assert _rel_err(got.detach(), _apply(jmod, params, v, out_steps=12)) < 1e-5
+
+
+def test_fused_pair_wins_on_both_sides_of_the_h100_crossover():
+    from tpu_cfd_torch.models.fused_conv import fused_pair_wins
+
+    # the McWilliams recipe (64², m 32, 6,400 planes): torch.fft
+    assert not fused_pair_wins(64, 64, 32, 32, 64 * 10 * 10)
+    assert not fused_pair_wins(64, 64, 32, 32, 128 * 10 * 10)
+    # the same at 3,200 planes and below, the optimizer sweep (m 12, 800 planes)
+    # and every truncated case measured: the kernel pair
+    assert fused_pair_wins(64, 64, 32, 32, 32 * 10 * 10)
+    assert fused_pair_wins(64, 64, 32, 32, 4 * 10 * 20)
+    assert fused_pair_wins(64, 64, 12, 12, 4 * 10 * 20)
+    assert fused_pair_wins(64, 64, 24, 24, 128 * 10 * 10)
+    # planes the fused kernels do not take (two passes): torch.fft
+    assert not fused_pair_wins(256, 256, 32, 32, 2 * 10 * 10)
+
+
+def test_dft_apply_wins_on_both_sides_of_the_h100_crossover():
+    from tpu_cfd_torch.models.sfno import dft_apply_wins
+
+    # the recipe's lifting (6,400 planes of 64²): torch.fft at m 32 and 24,
+    # the einsums up to m 16
+    assert not dft_apply_wins(64, 64, 32, 32, 64 * 10 * 10)
+    assert not dft_apply_wins(64, 64, 24, 24, 64 * 10 * 10)
+    assert dft_apply_wins(64, 64, 16, 16, 64 * 10 * 10)
+    # host-bound sizes: the recipe's output conv, the sweep's two
+    assert dft_apply_wins(64, 64, 32, 32, 64 * 11 * 1)
+    assert dft_apply_wins(64, 64, 12, 12, 4 * 10 * 20)
+    assert dft_apply_wins(64, 64, 12, 12, 4 * 11 * 1)
+
+
 def _rel_l2(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))

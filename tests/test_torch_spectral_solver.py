@@ -214,10 +214,30 @@ class TestLayouts:
             teq.NavierStokes2DSpectral(viscosity=1e-3, grid=tg)
 
     def test_recommended_fft_impl(self):
+        # the H100 table: the fused kernel up to 256² (aligned at 64², b >= 32),
+        # torch.fft at 256², b=128 and from 512² up
         assert teq.recommended_fft_impl(256, 32) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(256, 8) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(64, 1) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(128, 128) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(64, 32) == "dft_aligned_fused"
+        assert teq.recommended_fft_impl(256, 128) == "fft"
+        assert teq.recommended_fft_impl(512, 8) == "fft"
+        assert teq.recommended_fft_impl(1024, 32) == "fft"
+        assert teq.recommended_fft_impl(4096, 1) == "fft"
         assert teq.recommended_fft_impl(256, 32, double=True) == "fft"
         assert teq.recommended_fft_impl(256, 32, dealias=False) == "fft"
+
+    @pytest.mark.parametrize("n,b", sorted(teq._H100_MS_PER_STEP))
+    def test_recommended_impls_are_the_measured_fastest(self, n, b):
+        ms = dict(zip(teq._ROUTES, teq._H100_MS_PER_STEP[(n, b)]))
+        best = teq.recommended_fft_impl(n, b)
+        assert all(ms[best] <= t for t in ms.values())
+        unfused = teq.recommended_unfused_impl(n, b)
+        assert not unfused.endswith("_fused")
+        assert all(ms[unfused] <= t for r, t in ms.items() if not r.endswith("_fused"))
+        # between measured points the nearer one (in log2) answers
+        assert teq.recommended_fft_impl(int(n * 1.2), int(b * 1.2) + 1) == best
 
 
 class TestTrajectories:

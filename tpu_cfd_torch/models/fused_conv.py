@@ -85,6 +85,43 @@ def _scale_for(norm: str, n_mesh: int) -> float:
     )
 
 
+# SpectralConvS forward + backward at 64², ms, fused kernel pair / torch.fft,
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit (python3 -m
+# tpu_cfd_torch.ops.cuda.route_times --sweep conv; medians of three rounds,
+# two runs; PERF.md §6). Where all modes are kept (2m = n) the pair won
+# at 800 to 3,200 planes and lost from 6,400 up; this is the geometric mean.
+FULL_MODES_MAX_PLANES = 4525
+
+
+def fused_pair_wins(nx: int, ny: int, mx: int, my: int, planes: int) -> bool:
+    """Whether a same-mesh fp32 SpectralConvS runs faster through the fused
+    DFT kernel pair than through the ``torch.fft`` arithmetic, from the shape
+    alone: ``planes`` = b x t x channels planes of nx x ny, modes (mx, my).
+
+    Measured at 64² on an NVIDIA H100 80GB HBM3 (700 W), forward plus
+    backward, median ms (kernels / fft):
+    - all modes kept (m = 32): 6,400 planes, the McWilliams recipe (b 64,
+      t 10, c 10), 5.6710 / 4.9326 and 5.7064 / 4.9830 in two runs; 12,800
+      planes 11.0249 / 9.4971; but 3,200 planes 3.0611 / 3.3804, 800 planes
+      (the optimizer sweep's b 4, t 10, c 20) 2.8594 / 3.9302. So the pair
+      wins up to ``FULL_MODES_MAX_PLANES``.
+    - fewer modes (m ≤ 24): the pair won at every count measured, 800 to
+      12,800 planes (m = 24, 12,800: 7.5493 / 8.2632; the sweep's m = 12:
+      2.4156 / 3.5987).
+    - where the fused kernels do not take the shape (a plane too large for
+      an SM's shared memory, e.g. 256²), the pair runs on two passes of CUDA
+      cores, 2× behind cuFFT at the recipe's planes (0.6702 ms against 0.3070
+      for ``dft2d_modes``; PERF.md §6): no.
+    The answer depends on the shape only, never on the device.
+    """
+    if (sc.fused_modes_layout(nx, ny, 2 * my, 2 * mx) is None
+            or sc.fused_inverse_layout(nx, ny, 2 * my, 2 * mx) is None):
+        return False
+    if 2 * mx >= nx or 2 * my >= ny:
+        return planes <= FULL_MODES_MAX_PLANES
+    return True
+
+
 def fused_spectral_conv_s(
     v: Tensor,
     weight: Tensor,

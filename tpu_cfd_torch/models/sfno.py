@@ -8,10 +8,13 @@ follow ``tpu_cfd_torch.convert``, which maps them to the flax names.
 
 ``SpectralConvS`` on a float32 input with ``impl="dft"`` and
 ``norm="backward"`` runs through the truncated 2-D DFT kernels
-(``models/fused_conv.py``); every other spectral conv runs
-``SpectralConv._dft_apply`` (or the FFT path), as the whole JAX model does.
-A bfloat16 input (``compute_dtype``) goes up to float32 first, so it takes
-the same route, and the result comes back down.
+(``models/fused_conv.py``) where ``fused_pair_wins`` says they are faster on
+the card than ``torch.fft`` (a choice by shape, measured on an H100), and
+through the ``impl="fft"`` arithmetic where it says no; ``SpectralConvT``
+runs ``SpectralConv._dft_apply``, as the whole JAX model does, or the FFT
+path where ``dft_apply_wins`` says that is faster on the card (both answers
+by shape, measured on an H100). A bfloat16 input (``compute_dtype``) goes up to float32 first,
+so it takes the same route, and the result comes back down.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from tpu_cfd_torch.models.base import (
     remat_block,
     view_as_complex,
 )
-from tpu_cfd_torch.models.fused_conv import fused_spectral_conv_s
+from tpu_cfd_torch.models.fused_conv import fused_pair_wins, fused_spectral_conv_s
 
 Tensor = torch.Tensor
 
@@ -158,6 +161,10 @@ class SpectralConvS(SpectralConv):
             return super().forward(v, out_mesh_size=out_mesh_size)
         same_mesh = out_mesh_size is None or tuple(out_mesh_size) == tuple(v.shape[1:4])
         if same_mesh and v.dtype == torch.float32 and self.norm == "backward":
+            b, nx, ny, nt, ci = v.shape
+            planes = b * nt * max(ci, self.out_channels)
+            if not fused_pair_wins(nx, ny, self.modes[0], self.modes[1], planes):
+                return super().forward(v, out_mesh_size=out_mesh_size)
             return fused_spectral_conv_s(
                 v, self.compact_weight(),
                 self.compact_bias() if self.bias else None,
@@ -182,12 +189,40 @@ class SpectralConvS(SpectralConv):
         return out
 
 
+# SpectralConvT (the lifting's and the output's) forward + backward at 64²,
+# ms, dense DFT einsums / torch.fft, on an NVIDIA H100 80GB HBM3 at a 700 W
+# power limit (python3 -m tpu_cfd_torch.ops.cuda.route_times --sweep convt;
+# PERF.md §6): up to these planes both are host-bound and neither wins.
+DFT_APPLY_MAX_PLANES = 800
+
+
+def dft_apply_wins(nx: int, ny: int, mx: int, my: int, planes: int) -> bool:
+    """Whether a float32 SpectralConvT runs faster on its dense DFT einsums
+    (``_dft_apply``, the JAX package's route) than on ``torch.fft``, from the
+    shape alone: ``planes`` = b x t x channels planes of nx x ny, modes
+    (mx, my).
+
+    Measured on an NVIDIA H100 80GB HBM3 (700 W), forward plus backward, median
+    ms (einsums / fft): the recipe's lifting (64², 6,400 planes) 2.6892 /
+    3.7730 at m = 12 and 3.3139 / 4.5191 at m = 16, but 5.2172 / 4.3853 at
+    m = 24 and 7.0842 / 5.1149 at m = 32 (the recipe). So the einsums win
+    where the modes are at most a quarter of the mesh, and torch.fft above
+    that. At up to ``DFT_APPLY_MAX_PLANES`` planes (the recipe's output conv,
+    704 planes; the optimizer sweep's two, 800 and 44) both take 1.6-4.2 ms,
+    bound by the host, and the sign of the difference flips between
+    neighbouring m: the einsums stay, as in the JAX package.
+    """
+    return 4 * max(mx, my) <= min(nx, ny) or planes <= DFT_APPLY_MAX_PLANES
+
+
 class SpectralConvT(SpectralConvS):
     """Time-focused spectral conv with output-steps resampling.
 
     The irfft output length sets the temporal resolution; left temporal
     zero-padding suppresses aliasing from the non-periodic time axis.
-    Always ``_dft_apply`` (or the FFT path), never the fused kernels.
+    Always ``_dft_apply`` (or the FFT path), never the fused kernels; with
+    ``impl="dft"`` a float32 input takes the FFT path where
+    ``dft_apply_wins`` says it is faster on the card.
     """
 
     def __init__(self, *args, out_steps: Optional[int] = None,
@@ -216,8 +251,10 @@ class SpectralConvT(SpectralConvS):
             return self.forward(v.float(), out_steps).to(torch.bfloat16)
         if out_steps is None and self.out_steps is not None:
             out_steps = self.out_steps
-        if self.impl == "dft":
-            _, nx, ny, nt, _ = v.shape
+        b, nx, ny, nt, ci = v.shape
+        planes = b * nt * max(ci, self.out_channels)
+        if self.impl == "dft" and (v.dtype != torch.float32 or dft_apply_wins(
+                nx, ny, self.modes[0], self.modes[1], planes)):
             t_pad = nt if self.temporal_padding else 0
             if out_steps is None:
                 out_steps = nt

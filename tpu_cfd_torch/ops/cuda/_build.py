@@ -3,8 +3,10 @@
 Each source under ``csrc/`` compiles into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``),
 written at first use to ``build/kernels/`` at the repository root (listed
-in ``.gitignore``). The file name carries a hash of the source and flags,
-so an edited source rebuilds and an unchanged one loads as it is.
+in ``.gitignore``). The file name carries a hash of the source, of the
+``csrc/`` headers it includes (``#include "x.cuh"``, and theirs in turn) and
+of the flags, so an edited source or header rebuilds and an unchanged one
+loads as it is.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,11 +42,29 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, each once."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its content and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by its content, its included
+    headers' and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(name: str, extra_flags: tuple = (), force: bool = False) -> Path:

@@ -101,6 +101,8 @@
 #include <cstdint>
 #include <cstring>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256, RT = 4;
@@ -247,27 +249,6 @@ struct Layout {
   int sv, sy, sh, sx;  // row strides of v, FyT, H, FxT (4, 8, 16, 8 mod 32)
 };
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  // not volatile: the compiler may interleave independent products and
-  // move fragment loads across them
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Where column c of a transform matrix sits in shared memory: within each
 // 32-column block, the four columns a thread's B fragments take (c, c + 8,
 // c + 16, c + 24) are neighbours, so one 16-byte load fetches them.
@@ -395,18 +376,6 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][4][4], int steps,
     if (s + 2 < steps) frag(f[0], s + 2);
     mma3(acc, f[1]);
   }
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One plane (nx x ny floats, rows 16-byte aligned) into a v buffer.

@@ -1,9 +1,12 @@
 """Fused pointwise FFN ``act(x @ w1 + b1) @ w2 + b2``: CUDA kernel and wrapper.
 
 Replaces the TPU kernel ``tpu_cfd/ops/pallas/ffn.py::_ffn_kernel`` (its
-``pallas_call`` in ``_ffn_forward``). ``csrc/ffn.cu`` keeps both weight
-matrices in shared memory and the expanded hidden row in registers, so x is
-read once and the output written once (see its header for the bound).
+``pallas_call`` in ``_ffn_forward``). ``csrc/ffn.cu`` runs both products on
+the tensor cores (``mma.sync`` TF32 with the 3xTF32 split, fp32-accurate),
+16 rows a warp, with both weight matrices split into TF32 parts in shared
+memory and the hidden activations in registers, so x is read once and the
+output written once (see its header for the bound and the design);
+``ffn_layout`` is its shared-memory layout.
 
 ``pointwise_ffn`` is a ``torch.autograd.Function``: its forward is the
 kernel on a CUDA tensor and the plain PyTorch version (``_ffn_plain``) on a
@@ -53,6 +56,8 @@ LAUNCHES = {"ffn": 0}
 ROW_DTYPES = (torch.float32, torch.bfloat16)
 
 _CUDA_ERROR_INVALID_VALUE = 1  # csrc/ffn.cu's answer to a size it does not take
+SMEM_LIMIT = 232448  # bytes of shared memory a block may have (227 KB)
+MAX_WIDTH = 64       # K and K_out the kernel takes
 
 
 def reset_launch_counts() -> None:
@@ -71,12 +76,44 @@ def _ffn_plain(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
 
 
 @functools.lru_cache(maxsize=None)
+def ffn_layout(k: int, h: int, k_out: int, row_bytes: int):
+    """The kernel's shared-memory layout for this shape, as ``(15 ints in the
+    order of csrc/ffn.cu's FfnLayout, bytes)``, or ``None`` where it takes no
+    launch: K or K_out above ``MAX_WIDTH``, or weights too large for a block.
+
+    K, K_out and H are padded to multiples of 8 (``ks``, ``ns``, ``hs``
+    steps of 8). Shared memory holds W1 and W2 as the TF32 hi and lo parts of
+    each lane's B fragments (a float4 per lane and product step: ``hs * ks``
+    and ``hs * ns`` steps of 512 bytes), the zero-padded biases, and per warp
+    two 16-row tiles of x and one of the output, in the rows' own type
+    (``row_bytes`` an element). A block has 8 warps, or 4, 2 or 1 where 8
+    do not fit; ``p`` is the template instance, 8 times the larger of ``ks``
+    and ``ns``.
+    """
+    if not (0 < k <= MAX_WIDTH and 0 < k_out <= MAX_WIDTH and h > 0):
+        return None
+    ks, ns, hs = -(-k // 8), -(-k_out // 8), -(-h // 8)
+    w2f = 512 * hs * ks
+    b1 = w2f + 512 * hs * ns
+    b2 = b1 + 32 * hs
+    xs = b2 + 32 * ns
+    xbuf, obuf = 16 * k * row_bytes, 16 * k_out * row_bytes
+    for warps in (8, 4, 2, 1):
+        nbytes = xs + warps * (2 * xbuf + obuf)
+        if nbytes <= SMEM_LIMIT:
+            ints = (k, h, k_out, ks, ns, hs, warps, 0, w2f, b1, b2, xs, xbuf, obuf,
+                    8 * max(ks, ns))
+            return ints, nbytes
+    return None
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from tpu_cfd_torch.ops.cuda import _build
 
     lib = _build.load("ffn")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pointwise_ffn.argtypes = [P] * 6 + [L, I, I, I, I, I, P]
+    lib.pointwise_ffn.argtypes = [P] * 6 + [L, I, I, P, I, P]
     lib.pointwise_ffn.restype = I
     return lib
 
@@ -95,17 +132,26 @@ def _launch_ffn(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
+    layout = ffn_layout(k, h, k_out, x2.element_size())
+    if layout is None:
+        raise RuntimeError(
+            f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: K and K_out "
+            f"at most {MAX_WIDTH}, and both weight matrices in one block's shared memory")
+    ints, nbytes = layout
     out = torch.empty((m, k_out), dtype=x2.dtype, device=x2.device)
     if m == 0:  # csrc/ffn.cu launches nothing for no rows
         return out
+    if x2.data_ptr() % 16:  # the row tiles come in as 16-byte copies
+        x2 = x2.clone()
     err = _lib().pointwise_ffn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), m, k, h, k_out, _ACT_CODE[act],
-        int(x2.dtype == torch.bfloat16), torch.cuda.current_stream(x2.device).cuda_stream)
+        b2.data_ptr(), out.data_ptr(), m, _ACT_CODE[act],
+        int(x2.dtype == torch.bfloat16), (ctypes.c_int * len(ints))(*ints), nbytes,
+        torch.cuda.current_stream(x2.device).cuda_stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(
-            f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: K and K_out "
-            "at most 64, and both weight matrices in one block's shared memory")
+            f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: no block "
+            "of its shared memory fits on an SM")
     if err != 0:
         raise RuntimeError(f"CUDA kernel pointwise_ffn failed with cudaError {err}")
     LAUNCHES["ffn"] += 1

@@ -4,9 +4,11 @@ Run from the root of a checkout: ``python3 -m tpu_cfd_torch.ops.cuda.kernel_time
 It prints one JSON line: ms a launch (CUDA events over 20 launches after a
 warm-up) of the RK4-CN stage's three kernels at 256², b=32, in both layouts
 (main path 1's shape), of ``dft2d_inverse`` at the SFNO recipe's and the
-optimizer sweep's shapes (main paths 2 and 3), and ms a step of the fused
-Galerkin rollout at b=32, with the card's name and power limit. Inputs come
-from a seeded generator on the card.
+optimizer sweep's shapes (main paths 2 and 3), of ``pointwise_ffn`` at the
+recipe's (2,621,440 rows, 10 -> 40 -> 10, GELU) and the sweep's (163,840
+rows, 20 -> 80 -> 20, ReLU) shapes with float32 and bfloat16 rows, and ms a
+step of the fused Galerkin rollout at b=32, with the card's name and power
+limit. Inputs come from a seeded generator on the card.
 
 It calls only the wrappers' public signatures, which an older checkout of the
 port shares, so a copy of this file runs unchanged there. To compare two
@@ -27,6 +29,7 @@ import torch
 
 from tpu_cfd_torch import grids
 from tpu_cfd_torch.models.fused_conv import _dft2d_constants
+from tpu_cfd_torch.ops.cuda import ffn
 from tpu_cfd_torch.ops.cuda import spectral_conv as sc
 from tpu_cfd_torch.ops.cuda import spectral_step as ss
 from tpu_cfd_torch.solvers.equations import NavierStokes2DSpectral
@@ -78,6 +81,13 @@ def main() -> int:
         g = torch.randn(bb, 10 * ch, 2 * m, 2 * m, dtype=torch.complex64, device=dev,
                         generator=gen)
         out["dft2d_inverse" + key] = _ms(lambda: sc.inverse(g, 1.0 / (nn * nn * 10), c), 20)
+    for key, (rows, k, act) in {"recipe": (64 * 64 * 64 * 10, 10, "GELU"),
+                                "sweep": (4 * 64 * 64 * 10, 20, "ReLU")}.items():
+        x = torch.randn(rows, k, device=dev, generator=gen)
+        w = [a * torch.randn(*s, device=dev, generator=gen) for s, a in (
+            ((4 * k, k), 0.3), ((4 * k,), 0.1), ((k, 4 * k), 0.15), ((k,), 0.1))]
+        for tag, xr in (("", x), ("_bf16", x.bfloat16())):
+            out[f"ffn_{key}{tag}"] = _ms(lambda: ffn.ffn_forward(xr, *w, act), 20)
     print(json.dumps(out), flush=True)
     return 0
 

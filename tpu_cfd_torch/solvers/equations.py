@@ -149,31 +149,88 @@ class RK4CrankNicolsonStepper(IMEXStepper):
         return u
 
 
+# ms a step of the RK4-CN rollout by route, measured on an NVIDIA H100 80GB
+# HBM3 at a 700 W power limit (``python3 -m tpu_cfd_torch.ops.cuda.route_times
+# --sweep solver``: viscosity 1e-3, medians of three rounds of CUDA events;
+# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES.
+_ROUTES = ("dft_galerkin_fused", "dft_aligned_fused", "fft", "dft_galerkin")
+_H100_MS_PER_STEP = {
+    (64, 8): (0.2846, 0.3635, 2.4950, 6.9519),
+    (64, 32): (0.2864, 0.2574, 2.3802, 4.8411),
+    (64, 128): (0.3232, 0.2565, 2.2286, 4.2549),
+    (128, 8): (0.3640, 0.4239, 2.6101, 3.6656),
+    (128, 32): (0.3670, 0.4337, 2.5907, 4.1933),
+    (128, 128): (1.1615, 1.3996, 2.8015, 6.5349),
+    (256, 8): (0.8015, 1.0494, 1.7507, 4.6547),
+    (256, 32): (1.6452, 2.7409, 2.2515, 4.4561),
+    (256, 128): (6.0045, 10.5841, 5.9167, 10.4179),
+    (512, 8): (3.7069, 6.4390, 3.3897, 5.7679),
+    (512, 32): (14.0157, 25.4178, 5.9492, 14.5208),
+    (512, 128): (54.6064, 100.3233, 21.4569, 49.6301),
+    (1024, 8): (32.6973, 64.3784, 6.0034, 20.1682),
+    (1024, 32): (127.3719, 254.1849, 21.5080, 74.7591),
+    (1024, 128): (497.9074, 997.2236, 83.1835, 289.6081),
+}
+
+
+def _measured_ms(grid_size: int, batch_size: int) -> dict:
+    """The route times of the measured point nearest (grid_size, batch_size)
+    in log2 of each; sizes and batches outside the grid take its edge."""
+    def nearest(x, grid):
+        return min(grid, key=lambda g: (abs(math.log2(max(x, 1) / g)), g))
+
+    n = nearest(grid_size, sorted({k[0] for k in _H100_MS_PER_STEP}))
+    b = nearest(batch_size, sorted({k[1] for k in _H100_MS_PER_STEP}))
+    return dict(zip(_ROUTES, _H100_MS_PER_STEP[(n, b)]))
+
+
 def recommended_fft_impl(
     grid_size: int,
     batch_size: int = 8,
     double: bool = False,
     dealias: bool = True,
 ) -> str:
-    """The solver transform the port uses by default on the card.
+    """The solver transform the port uses by default on the card: the
+    fastest route measured on an NVIDIA H100 80GB HBM3 (700 W) at the
+    nearest (n, b) of n ∈ {64, ..., 1024}, b ∈ {8, 32, 128}
+    (``_H100_MS_PER_STEP``).
 
-    fp32 dealiased runs take the hand-written fused RK4-CN kernel on the
-    Galerkin block (``dft_galerkin_fused``) at every size and batch. fp64
-    runs and runs without dealiasing take ``fft`` (``torch.fft``): the
-    kernel is fp32-only and steps on the 2/3-rule block.
-
-    Measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 (700 W
-    power limit), 256², 100 steps, ms per step: at b=32 the kernel took
-    2.418, the ``torch.matmul`` Galerkin path 4.532 and ``torch.fft``
-    2.537 (2.133 in a second run: on par at b=32); at b=8, 0.870, 4.560
-    and 2.709 (PERF.md, "Findings").
-    ``grid_size`` and ``batch_size`` do not change the answer yet; they
-    stay in the signature for parity with the JAX package.
+    fp32 dealiased runs take the hand-written fused RK4-CN kernel where it
+    wins: on the Galerkin block (``dft_galerkin_fused``) at 128² and 256²
+    below b=128 (256², b=32: 1.6452 ms a step against 2.2515 for
+    ``torch.fft``; b=8: 0.8015 against 1.7507) and at 64², b=8, on the
+    aligned layout (``dft_aligned_fused``) at 64², b ≥ 32 (0.2574 against
+    0.2864 on the Galerkin block). ``torch.fft`` (``fft``) wins from 512² up
+    (1024², b=32: 21.508 against 127.37 for the kernel, whose dense DFTs
+    grow as n³) and at 256², b=128 (5.9167 against 6.0045, rounds
+    5.91–5.95 against 6.00–6.04). fp64 runs and runs without dealiasing take
+    ``fft``: the kernel is fp32-only and steps on the 2/3-rule block.
     """
-    del grid_size, batch_size
     if double or not dealias:
         return "fft"
-    return "dft_galerkin_fused"
+    ms = _measured_ms(grid_size, batch_size)
+    return min(ms, key=ms.get)
+
+
+def recommended_unfused_impl(
+    grid_size: int,
+    batch_size: int = 8,
+    double: bool = False,
+    dealias: bool = True,
+) -> str:
+    """The default transform where the fused kernel cannot run (an
+    integrator other than the low-storage RK4-CN, e.g. the ``fno`` dataset's
+    IMEX order 2): the fastest route without it in ``_H100_MS_PER_STEP``.
+
+    That is ``torch.fft`` at every measured point on the NVIDIA H100 80GB
+    HBM3 (700 W): the ``torch.matmul`` Galerkin path (``dft_galerkin``, the
+    TPU's choice) took 4.4561 ms a step at 256², b=32, against 2.2515, and
+    6.9519 against 2.4950 at 64², b=8.
+    """
+    if double or not dealias:
+        return "fft"
+    ms = _measured_ms(grid_size, batch_size)
+    return min((r for r in ms if not r.endswith("_fused")), key=ms.get)
 
 
 @dataclasses.dataclass
