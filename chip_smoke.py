@@ -29,7 +29,8 @@ printing no result, when either is missing or any phase fails:
    pointers, on 104 leaves in two launches a step, leaf by leaf
    (``adam_step``), and against ``torch.optim.Adam``;
 6. drives the second main path, ``python -m tpu_cfd_torch.train.train`` at
-   the McWilliams recipe (16,469,791 parameters, batch 64, 2 epochs) on
+   the McWilliams recipe's widths and the throughput batch 64 (16,469,791
+   parameters, 2 epochs; the accuracy run trains at batch 4) on
    that dataset, checks the losses, and checks from the launch counters
    that every PointwiseFFN ran through its kernel and every SpectralConvS
    took the route ``fused_pair_wins`` names for the recipe's shape (the DFT
@@ -42,14 +43,16 @@ printing no result, when either is missing or any phase fails:
    and each transform on its two-pass route beside the fused one), the
    RK4-CN stage's three kernels in both layouts and the rollouts beside
    ``torch.fft`` in three rounds with their spread, the SFNO train step
-   in three rounds by six routes (the default, the DFT kernel pair forced,
-   ``impl="fft"``, plain versions, bf16 activations, remat: the last checks
-   the doubled forward launches), and checks that the default is no slower
-   than the faster of the kernel pair and ``impl="fft"`` within the rounds'
-   spread, the Adam step over all leaves of both
-   SFNOs (through the table main path 3 keeps, through ``adam_step_leaves``,
-   leaf by leaf) beside ``torch.optim.Adam`` fused and foreach, and the
-   FNO3d step;
+   by six routes (the default, the DFT kernel pair forced and
+   ``impl="fft"`` in seven rounds taken in turns, each round in a rotated
+   order; plain versions, bf16 activations and remat in three rounds each,
+   the last checking the doubled forward launches), and checks that the
+   default's median is no more than the faster median of the kernel pair
+   and ``impl="fft"`` plus the largest interquartile range of their rounds,
+   the Adam step
+   over all leaves of both SFNOs (through the table main path 3 keeps,
+   through ``adam_step_leaves``, leaf by leaf) beside ``torch.optim.Adam``
+   fused and foreach, and the FNO3d step;
 8. drives the third main path, ``python -m tpu_cfd_torch.train.opt_layout
    --variants base,fused_adam --check`` at its own configuration (SFNO modes
    12/12/5, width 20, 64², t 10 → 40, batch 4), checks the losses and that
@@ -60,7 +63,26 @@ printing no result, when either is missing or any phase fails:
    kernel's count must still move;
 9. drives the fourth main path, ``python -m tpu_cfd_torch.train.train_fno3d``
    (modes 32/5, width 10, batch 4, 2 epochs) on the dataset of phase 4, and
-   checks the parameter count and the losses.
+   checks the parameter count and the losses;
+10. drives the fifth main path, ``python -m tpu_cfd_torch.data.generate
+   kolmogorov`` at its widths (256² → 64², batch 8, forcing and drag 0.1),
+   32 samples, 100 warmup + 291 recorded steps (30 records; depth cut from
+   4.5·10³ + 5.5·10³ steps and 1,152 samples), checks the dataset, that the
+   fused Galerkin kernels did the stepping (each counter ``steps × 5``),
+   that the initial condition on the card (``filtered_velocity_field`` at
+   256², b=8, fp32) is divergence-free to 1e-4 with each sample's maximum
+   speed 5 to 1e-5, holds the fused Galerkin rollout from the curl of that
+   IC against its plain version over 10 steps at the CLI's constants
+   (viscosity 1e-3, drag 0.1, Kolmogorov forcing), and prints its
+   sample-steps/s and the rollout's alone (median of five calls, range);
+11. drives the sixth main path, ``python -m tpu_cfd_torch.data.generate fno``
+   at its widths (256² → 64², batch 8, IMEX order 2 on ``torch.fft``), 16
+   samples, 100 warmup + 291 recorded steps (30 records; depth cut from
+   3·10⁴ + 2·10⁴ steps and 1,280 samples), once plainly and once with
+   ``--replicable-init`` (the GRF's noise drawn at 2048² on the card),
+   checks the datasets and that no spectral-step kernel launched, and times
+   the IMEX-2 rollout at b=8 and the full dataset's b=64 for the dataset's
+   cost (median of five calls, range).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -94,7 +116,9 @@ ADAM_TOL = 1e-6      # max abs error / max |plain| of p, m, v after three steps
 REFERENCE_TOL = 1e-4  # rel-L2, fp32 fused rollout vs fp64 torch.fft, 20 steps
 FFT_TOL = 1e-4       # max abs error / max |fft|, DFT pair vs torch.fft at 2m = n
 CSRC = "tpu_cfd_torch/ops/cuda/csrc/"
-# the SFNO McWilliams recipe (README; tpu_cfd/train/train.py)
+# the SFNO at the McWilliams recipe's widths (README; tpu_cfd/train/train.py)
+# and the throughput batch 64. The recipe's accuracy run trains at batch 4,
+# train.py's default (train/recipe_accuracy.py, logs/train_mc_r4.log)
 RECIPE = dict(b=64, n=64, nt=10, width=10, modes=32, modes_t=5, layers=4)
 RECIPE_PARAMS = 16_469_791
 # the optimizer sweep's SFNO (scripts/opt_layout_r4.py) and the FNO3d
@@ -104,6 +128,7 @@ SWEEP_BATCH = 4
 SWEEP_PARAMS = 9_242_461
 FNO3D_PARAMS = 16_386_997
 LEAVES = 52  # parameter leaves of a 4-layer SFNO: the Adam kernel updates a step
+GATE_ROUNDS = 7  # rounds of the train-step route gate (phase 7)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -253,8 +278,7 @@ def main() -> int:
                     grid=grid, fft_impl=f"dft_{layout}", fused=True,
                     mxu_precision=prec, device=dev, **kw)
                 w = ns._align(what4)
-                f_hat = (ns._explicit_terms(w.new_zeros(w.shape[-2:]))
-                         if forced else None)
+                f_hat = ns._forcing_term() if forced else None
                 c = ss.constants(layout, grid, ns.viscosity, ns.drag, DT, dev, f_hat)
                 jc = ss.resolve_block_cols("auto", N, c["m"])
                 got = ss._fused_rollout(
@@ -917,7 +941,8 @@ def main() -> int:
                       "dft_kernels": {"modes": 6, "inverse": 6, "ffn": 4},
                       "remat": {"modes": 9 * pair, "inverse": 6 * pair, "ffn": 8}}
 
-    def train_route(route: str) -> dict:
+    def build_step(route: str):
+        """The train step of ``route`` from the base parameters, warmed up."""
         model = train.build_model(train.get_parser().parse_args(
             targv + route_flags.get(route, [])))
         if route == "fft":
@@ -931,36 +956,49 @@ def main() -> int:
         for _ in range(2):
             step(inp, target)
         torch.cuda.synchronize()
+        return step
+
+    # the default, the kernel pair forced and impl="fft" are timed once, in the
+    # gate's rounds below; train_route reads their launches, memory and profile
+    gated = ("default", "dft_kernels", "fft")
+
+    def train_route(route: str) -> dict:
+        step = build_step(route)
         sc.reset_launch_counts()
         ffn_ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         rounds = []
-        for _ in range(3):
+        n_rounds, n_iters = (1, 2) if route in gated else (3, iters)
+        for _ in range(n_rounds):
             t0 = time.perf_counter()
-            for _ in range(iters):
+            for _ in range(n_iters):
                 loss = step(inp, target)
             torch.cuda.synchronize()
-            rounds.append(1e3 * (time.perf_counter() - t0) / iters)
-        rounds.sort()
-        ms = rounds[1]
-        counts = {k: v // 3 for k, v in {**sc.LAUNCHES, **ffn_ops.LAUNCHES}.items()}
+            rounds.append(1e3 * (time.perf_counter() - t0) / n_iters)
+        steps_run = n_rounds * n_iters
+        counts = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
         _require(bool(torch.isfinite(loss)), f"finite loss on the {route} route")
         for key, want in route_launches.get(route, {}).items():
-            _require(counts[key] == iters * want,
-                     f"{key}: {counts[key]} launches in {iters} {route} steps, "
-                     f"expected {iters * want}")
+            _require(counts[key] == steps_run * want,
+                     f"{key}: {counts[key]} launches in {steps_run} {route} steps, "
+                     f"expected {steps_run * want}")
         for key in ("modes", "inverse"):
             _require(counts[key + "_fused"] == counts[key],
                      f"every {key} launch fused on the {route} route")
-        row = {"route": route, "ms_per_step": ms, "rounds_ms": rounds,
-               "samples_per_s": rb / (ms * 1e-3),
-               "launches_per_step": {k: v / iters for k, v in counts.items()},
+        row = {"route": route,
+               "launches_per_step": {k: v / steps_run for k, v in counts.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "loss": float(loss)}
-        print(f"time train step {route}: {ms:.3f} ms/step (rounds "
-              f"{' / '.join(f'{r:.3f}' for r in rounds)}), {row['samples_per_s']:.1f} "
-              f"samples/s, peak {row['peak_gib']:.2f} GiB, launches/step "
-              f"{row['launches_per_step']}", flush=True)
+        timing = "timed in the gate's rounds"
+        if route not in gated:
+            rounds.sort()
+            row.update(ms_per_step=rounds[1], rounds_ms=rounds,
+                       samples_per_s=rb / (rounds[1] * 1e-3))
+            timing = (f"{rounds[1]:.3f} ms/step (rounds "
+                      f"{' / '.join(f'{r:.3f}' for r in rounds)}), "
+                      f"{row['samples_per_s']:.1f} samples/s")
+        print(f"time train step {route}: {timing}, peak {row['peak_gib']:.2f} GiB, "
+              f"launches/step {row['launches_per_step']}", flush=True)
         row["profile"] = profile_steps(route, lambda: step(inp, target), 3)
         return row
 
@@ -973,16 +1011,47 @@ def main() -> int:
             train_rows.append(train_route("plain"))
     print(f"time train step: kernels' bound {kernel_bound_ms:.3f} ms/step "
           f"(6 modes + 6 inverse + 4 ffn launches)", flush=True)
-    # the default route is the faster of the kernel pair and torch.fft, within
-    # the spread of the three rounds of each
-    by_route = {r["route"]: r for r in train_rows}
-    compared = [by_route[k] for k in ("default", "dft_kernels", "fft")]
-    spread_ms = max(r["rounds_ms"][-1] - r["rounds_ms"][0] for r in compared)
-    best_ms = min(r["ms_per_step"] for r in compared[1:])
-    print(f"time train step: default {compared[0]['ms_per_step']:.3f} ms/step, kernel "
-          f"pair {compared[1]['ms_per_step']:.3f}, impl=fft {compared[2]['ms_per_step']:.3f}, "
-          f"largest spread of their rounds {spread_ms:.3f}", flush=True)
-    _require(compared[0]["ms_per_step"] <= best_ms + spread_ms,
+    # the default route is the faster of the kernel pair and torch.fft: its
+    # median is no more than the faster median plus the largest interquartile
+    # range of the three. The rounds are taken in turns, each round in an order
+    # rotated by one, so that a drift of the card or the host falls on all three
+    # alike (timed one route after another, the default and impl=fft, one route
+    # at the recipe, once read 0.85 ms apart); median and quartiles let one
+    # disturbed round move neither side
+    def gate_context(route):
+        return kernel_route(sfno_mod) if route == "dft_kernels" else contextlib.nullcontext()
+
+    gate_steps = {}
+    for route in gated:
+        with gate_context(route):
+            gate_steps[route] = build_step(route)
+    gate_rounds = {route: [] for route in gated}
+    for i in range(GATE_ROUNDS):
+        for route in gated[i % 3:] + gated[:i % 3]:
+            with gate_context(route):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    gate_steps[route](inp, target)
+                torch.cuda.synchronize()
+            gate_rounds[route].append(1e3 * (time.perf_counter() - t0) / iters)
+    del gate_steps
+    gate_ms = {route: float(np.median(r)) for route, r in gate_rounds.items()}
+    iqr_ms = max(float(np.subtract(*np.percentile(r, [75, 25])))
+                 for r in gate_rounds.values())
+    range_ms = max(max(r) - min(r) for r in gate_rounds.values())
+    best_ms = min(gate_ms["dft_kernels"], gate_ms["fft"])
+    for row in train_rows:
+        if row["route"] in gated:
+            ms = gate_ms[row["route"]]
+            row.update(ms_per_step=ms, rounds_ms=gate_rounds[row["route"]],
+                       samples_per_s=rb / (ms * 1e-3))
+    print(f"time train step, {GATE_ROUNDS} rounds in turns (medians): default "
+          f"{gate_ms['default']:.3f} ms/step, kernel pair {gate_ms['dft_kernels']:.3f}, "
+          f"impl=fft {gate_ms['fft']:.3f}; largest interquartile range of their "
+          f"rounds {iqr_ms:.3f} (the tolerance), largest max-min {range_ms:.3f}",
+          flush=True)
+    _require(gate_ms["default"] <= best_ms + iqr_ms,
              "the default SpectralConvS route is no slower than the faster of the "
              "kernel pair and impl=fft")
 
@@ -1077,6 +1146,139 @@ def main() -> int:
         [h["train"] for h in fhist] + [h["test"] for h in fhist])),
         "finite FNO3d train and test losses")
     _require(next(fno_run["model"].parameters()).is_cuda, "FNO3d trained on the card")
+
+    from tpu_cfd_torch.ops import finite_differences as fdm
+    from tpu_cfd_torch.solvers.equations import IMEXStepper
+
+    # -- 10. main path 5: the kolmogorov dataset on the fused Galerkin kernels
+    kbatch, ksamples = 8, 32
+    kgrid = grids.Grid((N, N), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+    noise = torch.stack([torch.randn((2, N, N), device=dev,
+                                     generator=ic.sample_generator(0, i, dev))
+                         for i in range(kbatch)])
+    vel = ic.filtered_velocity_field(kgrid, maximum_velocity=5.0, peak_wavenumber=4,
+                                     noise=noise)
+    div = float(fdm.divergence(vel).data.abs().max())
+    speed = torch.linalg.vector_norm(torch.stack([u.data for u in vel]), dim=0)
+    vmax_err = float(((speed.amax(dim=(-2, -1)) - 5.0).abs() / 5.0).max())
+    print(f"main path 5: kolmogorov IC on the card (256^2, b{kbatch}, float32): max "
+          f"|div| {div:.3e} (tol 1e-4), max |vmax - 5| / 5 over samples {vmax_err:.3e} "
+          f"(tol 1e-5)", flush=True)
+    _require(vel[0].data.is_cuda and div < 1e-4, "divergence-free kolmogorov IC")
+    _require(vmax_err < 1e-5, "each kolmogorov sample's maximum speed is 5")
+    kargv = ["--grid-size", str(N), "--subsample", "4", "--batch-size", str(kbatch),
+             "--num-samples", str(ksamples), "--time", "0.4", "--time-warmup", "0.1",
+             "--dt", str(DT), "--num-steps", "30", "--filepath", tmp]
+    ss.reset_launch_counts()
+    t0 = time.perf_counter()
+    kpath = generate.main_kolmogorov(kargv)
+    torch.cuda.synchronize()
+    kwall = time.perf_counter() - t0
+    kol_launches = dict(ss.LAUNCHES)
+    with np.load(kpath) as z:
+        kvort = z["vorticity"]
+    with open(kpath + ".meta.json") as f:
+        kmeta = json.load(f)
+    ksteps = (ksamples // kbatch) * (100 + 1 + 29 * 10)
+    kol_rate = kbatch * ksteps / kwall
+    print(f"main path 5: kolmogorov 256^2->64^2, {ksamples} samples b{kbatch}, "
+          f"{ksteps} steps in {kwall:.2f} s: {kol_rate:.1f} sample-steps/s with the "
+          f"IC and the recorder, launches {kol_launches}, fft_impl "
+          f"{kmeta['fft_impl']}, records {kvort.shape}", flush=True)
+    _require(kvort.shape == (ksamples, 30, 64, 64), f"kolmogorov shape {kvort.shape}")
+    _require(bool(np.isfinite(kvort).all()), "finite kolmogorov dataset")
+    _require(kmeta["fft_impl"] == "dft_galerkin_fused", "kolmogorov took the kernel")
+    for key in ("inverse_first", "advect", "forward_first"):
+        _require(kol_launches[key] == ksteps * 5, f"kolmogorov: {key} launched "
+                 f"{kol_launches[key]} times, expected {ksteps * 5}")
+
+    # the fused Galerkin rollout at this path's batch and constants (the CLI's
+    # solver, rebuilt from its meta file), from the curl of the IC above as
+    # the CLI takes it, held against its plain version as phase 3a holds it
+    kforcing = forcings.KolmogorovForcing(grid=kgrid, scale=1.0, wave_number=4,
+                                          diam=2 * np.pi, vorticity=False)
+    kol_ns = NavierStokes2DSpectral(
+        viscosity=1e-3, grid=kgrid, drag=0.1, forcing_fn=kforcing,
+        fft_impl=kmeta["fft_impl"][: -len("_fused")], fused=True,
+        mxu_precision=kmeta["mxu_precision"], device=dev)
+    kw_hat = kol_ns._align(torch.fft.rfft2(fdm.curl_2d(vel).data))
+    kf_hat = kol_ns._forcing_term()
+    kc = ss.constants("galerkin", kgrid, kol_ns.viscosity, kol_ns.drag, DT, dev, kf_hat)
+    got = ss._fused_rollout(
+        kw_hat, layout="galerkin", grid=kgrid, viscosity=kol_ns.viscosity,
+        drag=kol_ns.drag, dt=DT, steps=10, forcing_hat=kf_hat,
+        precision=kol_ns.mxu_precision, block_cols="auto")
+    torch.cuda.synchronize()
+    want = ss._fused_rollout_plain(kw_hat, kc, 10, ss.resolve_block_cols("auto", N, kc["m"]))
+    torch.cuda.synchronize()
+    kol_err = rel(got, want)
+    print(f"main path 5: fused Galerkin rollout b{kbatch}, viscosity 1e-3, drag 0.1, "
+          f"Kolmogorov forcing (scale 1, wave 4), 10 steps from the IC: rel-L2 kernel "
+          f"vs plain {kol_err:.3e} (tol {ROLLOUT_TOL})", flush=True)
+    _require(bool(torch.isfinite(got).all()), "finite kolmogorov rollout")
+    _require(kol_err < ROLLOUT_TOL, "kolmogorov rollout vs plain")
+
+    def rollout_rate(ns, b, steps=100, rounds=5):
+        """sample-steps/s of ``ns.forward`` at batch b (CUDA events): the
+        median of ``rounds`` calls and their range."""
+        w0 = torch.fft.rfft2(torch.randn((b, N, N), device=dev, generator=gen))
+        ms = [cuda_ms(lambda: ns.forward(w0, DT, steps=steps), iters=1,
+                      warmup=1 if i == 0 else 0) for i in range(rounds)]
+        rates = sorted(b * steps / (t / 1e3) for t in ms)
+        return {"median": rates[rounds // 2], "min": rates[0], "max": rates[-1]}
+
+    def rate_text(r):
+        return f"{r['median']:.1f} (range {r['min']:.1f}-{r['max']:.1f} over 5 calls)"
+
+    kol_rollout = rollout_rate(kol_ns, kbatch)
+    print(f"main path 5: the fused Galerkin rollout alone at b{kbatch}: "
+          f"{rate_text(kol_rollout)} sample-steps/s", flush=True)
+
+    # -- 11. main path 6: the fno dataset, IMEX order 2 on torch.fft ----------
+    fno_rows = {}
+    for tag, extra in (("plain", []), ("replicable_init", ["--replicable-init"])):
+        fargv = ["--grid-size", str(N), "--subsample", "4", "--batch-size", "8",
+                 "--num-samples", "16", "--time", "0.4", "--time-warmup", "0.1",
+                 "--dt", str(DT), "--num-steps", "30", "--filepath",
+                 os.path.join(tmp, tag), *extra]
+        ss.reset_launch_counts()
+        t0 = time.perf_counter()
+        fpath = generate.main_fno(fargv)
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+        with np.load(fpath) as z:
+            fvort = z["vorticity"]
+        with open(fpath + ".meta.json") as f:
+            fmeta = json.load(f)
+        fsteps = 2 * (100 + 1 + 29 * 10)
+        fno_rows[tag] = dict(seconds=fwall, steps=fsteps,
+                             sample_steps_per_s=8 * fsteps / fwall,
+                             launches=dict(ss.LAUNCHES))
+        print(f"main path 6: fno {tag} 256^2->64^2, 16 samples b8, {fsteps} steps "
+              f"in {fwall:.2f} s: {fno_rows[tag]['sample_steps_per_s']:.1f} "
+              f"sample-steps/s with the IC and the recorder, fft_impl "
+              f"{fmeta['fft_impl']}, records {fvort.shape}, spectral-step launches "
+              f"{fno_rows[tag]['launches']}", flush=True)
+        _require(fvort.shape == (16, 30, 64, 64), f"fno shape {fvort.shape}")
+        _require(bool(np.isfinite(fvort).all()) and np.abs(fvort).max() > 0,
+                 "finite, non-zero fno dataset")
+        _require(fmeta["fft_impl"] == "fft", "the fno dataset takes torch.fft")
+        _require(not any(fno_rows[tag]["launches"].values()),
+                 "no spectral-step kernel on the IMEX order-2 path")
+    fgrid = grids.Grid((N, N), domain=((0, 1.0), (0, 1.0)))
+    fno_ns = NavierStokes2DSpectral(
+        viscosity=1e-3, grid=fgrid, fft_impl="fft", solver=IMEXStepper(order=2),
+        forcing_fn=forcings.SinCosForcing(grid=fgrid, scale=0.1, diam=1.0,
+                                          wave_number=1, vorticity=True),
+        device=dev)
+    fno_rollout = {b: rollout_rate(fno_ns, b) for b in (8, 64)}
+    full_h = {b: {k: 1280 * 5e4 / v / 3600 for k, v in r.items()}
+              for b, r in fno_rollout.items()}
+    print("main path 6: the IMEX-2 torch.fft rollout alone: "
+          + ", ".join(f"b{b} {rate_text(r)} sample-steps/s" for b, r in fno_rollout.items())
+          + "; the full fno dataset (1,280 samples x 5e4 steps) would take "
+          + ", ".join(f"{h['median']:.2f} h ({h['max']:.2f}-{h['min']:.2f}) at b{b}"
+                      for b, h in full_h.items()), flush=True)
     tmp_ctx.cleanup()
 
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
@@ -1112,7 +1314,9 @@ def main() -> int:
     # the DFT pair at the recipe's shape: its launches on main path 2 (none
     # where the recipe's SpectralConvS takes torch.fft) and on main path 3,
     # which runs the same two kernels at the sweep's shape
-    launches = {**{("spectral_step", k): v for k, v in gen_launches.items()},
+    # the spectral-step kernels run on main paths 1 (mcwilliams) and 5 (kolmogorov)
+    launches = {**{("spectral_step", k): v + kol_launches[k]
+                   for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v + sweep_launches[k] for k, v in
                    train_launches.items() if k in sc.LAUNCHES},
                 ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"],
@@ -1131,7 +1335,9 @@ def main() -> int:
          "shape": shapes.get(name, shapes.get(src)),
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
          **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key]}}
-            if name in ("dft2d_modes", "dft2d_inverse") else {})}
+            if name in ("dft2d_modes", "dft2d_inverse") else {}),
+         **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key]}}
+            if src == "spectral_step" else {})}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
         "adam_steps": adam_rows, "two_pass_ms": two_pass, "timed_x3": spread,
@@ -1139,8 +1345,18 @@ def main() -> int:
         "sweep_profile": sweep_profile, "fno3d_step": fno_row,
         "fno3d_history": fhist,
         "rollouts": rollouts, "train_steps": train_rows,
+        "train_step_gate_rounds_ms": gate_rounds,
+        "train_step_gate": {"median_ms": gate_ms, "iqr_ms": iqr_ms, "range_ms": range_ms},
         "train_step_kernel_bound_ms": kernel_bound_ms,
-        "ffn_chain_ms": chain_ms, "card": card}
+        "ffn_chain_ms": chain_ms,
+        "datasets": {"kolmogorov": {"seconds": kwall, "steps": ksteps,
+                                    "sample_steps_per_s": kol_rate,
+                                    "rollout_sample_steps_per_s": kol_rollout,
+                                    "ic_max_div": div, "ic_vmax_rel_err": vmax_err,
+                                    "rollout_rel_l2_vs_plain": kol_err},
+                     "fno": {**fno_rows, "rollout_sample_steps_per_s": fno_rollout,
+                             "full_dataset_hours": full_h}},
+        "card": card}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,10 @@ import torch
 
 from tpu_cfd import grids as jgrids
 from tpu_cfd.data import datasets as jdatasets, generate as jgen
-from tpu_cfd.solvers import equations as jeq
+from tpu_cfd.solvers import equations as jeq, forcings as jforcings
 from tpu_cfd_torch import grids as tgrids
 from tpu_cfd_torch.data import generate as tgen
-from tpu_cfd_torch.solvers import equations as teq
+from tpu_cfd_torch.solvers import equations as teq, forcings as tforcings
 
 torch.set_num_threads(2)
 
@@ -53,19 +53,35 @@ def _spectrum(batch, dtype):
     return xh.astype(np.complex128 if dtype == np.float64 else np.complex64)
 
 
-@pytest.mark.parametrize("impl,dtype,fields", [
-    ("fft", np.float64, ("vorticity", "stream", "vort_t", "residual")),
-    ("dft_galerkin", np.float32, ("vorticity",)),
-    ("dft_aligned", np.float32, ("vorticity", "vort_t")),
+def _flow(case, grid, forcings, equations):
+    """The forcing, drag and integrator of each dataset CLI's flow."""
+    if case == "kolmogorov":  # main_kolmogorov: velocity forcing, drag 0.1, RK4-CN
+        forcing = forcings.KolmogorovForcing(grid=grid, scale=1.0, wave_number=4,
+                                             diam=2 * np.pi, vorticity=False)
+        return dict(forcing_fn=forcing, drag=0.1)
+    if case == "fno":  # main_fno: vorticity forcing, IMEX order 2
+        forcing = forcings.SinCosForcing(grid=grid, scale=0.1, diam=2 * np.pi,
+                                         wave_number=1, vorticity=True)
+        return dict(forcing_fn=forcing, solver=equations.IMEXStepper(order=2))
+    return {}
+
+
+@pytest.mark.parametrize("impl,dtype,fields,case", [
+    ("fft", np.float64, ("vorticity", "stream", "vort_t", "residual"), "mcwilliams"),
+    ("dft_galerkin", np.float32, ("vorticity",), "mcwilliams"),
+    ("dft_aligned", np.float32, ("vorticity", "vort_t"), "mcwilliams"),
+    ("dft_galerkin", np.float32, ("vorticity", "vort_t"), "kolmogorov"),
+    ("fft", np.float64, ("vorticity", "stream", "vort_t", "residual"), "fno"),
 ])
-def test_make_batch_pipeline_matches_jax(impl, dtype, fields):
+def test_make_batch_pipeline_matches_jax(impl, dtype, fields, case):
     jg = jgrids.Grid((N, N), domain=DOMAIN)
     tg = tgrids.Grid((N, N), domain=DOMAIN)
     kw = dict(viscosity=1e-3, fft_impl=impl, mxu_precision="highest")
-    nj = jeq.NavierStokes2DSpectral(grid=jg, dtype=jnp.dtype(dtype), **kw)
+    nj = jeq.NavierStokes2DSpectral(grid=jg, dtype=jnp.dtype(dtype), **kw,
+                                    **_flow(case, jg, jforcings, jeq))
     nt = teq.NavierStokes2DSpectral(
         grid=tg, dtype=torch.float64 if dtype == np.float64 else torch.float32,
-        device="cpu", **kw)
+        device="cpu", **kw, **_flow(case, tg, tforcings, teq))
     args = (DT, 3, 7, 2, 16)  # warmup, total steps, record every, stored size
     w0 = _spectrum(2, dtype)
     rj = jgen.make_batch_pipeline(nj, *args, fields=fields, max_steps_per_program=4)(
@@ -159,11 +175,80 @@ def test_cli_without_card_or_no_cuda_raises(tmp_path):
 
 
 def test_unported_entry_points_raise(tmp_path, monkeypatch):
-    for main in (tgen.main_kolmogorov, tgen.main_fno):
+    """--data-parallel waits for ROADMAP Queue A item 6 on every dataset;
+    an unknown dataset name exits with the usage line."""
+    for main in (tgen.main_mcwilliams, tgen.main_kolmogorov, tgen.main_fno):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.main_mcwilliams(_cli(tmp_path, 2, "--data-parallel"))
+            main(_cli(tmp_path, 2, "--data-parallel"))
     monkeypatch.setattr(sys, "argv", ["generate", "nope"])
     with pytest.raises(SystemExit):
         tgen.main()
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("kolmogorov", ()), ("fno", ()), ("fno", ("--replicable-init",)),
+])
+def test_new_clis_write_loadable_datasets_and_resume(tmp_path, name, extra):
+    """Both CLIs end to end at 32² -> 16² on the CPU, with resume: the
+    kolmogorov flow on RK4-CN (the fused Galerkin route's pin), the fno flow
+    on IMEX order 2 (torch.fft)."""
+    main = {"kolmogorov": tgen.main_kolmogorov, "fno": tgen.main_fno}[name]
+
+    def argv(count, where):
+        return [a if a != "mc.npz" else f"{name}.npz"
+                for a in _cli(tmp_path / where, count, "--time", "0.01",
+                              "--time-warmup", "0.004", *extra)]
+
+    path = main(argv(3, "a"))
+    data = jdatasets.load_trajectory_dict(path)
+    w = data["vorticity"]
+    assert w.dtype == np.float32 and w.shape == (3, 2, 16, 16)
+    assert np.isfinite(w).all() and np.abs(w).max() > 0
+    np.testing.assert_array_equal(data["random_states"], [0, 1, 2])
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    assert meta["fft_impl"] == ("dft_galerkin_fused" if name == "kolmogorov" else "fft")
+    main(argv(5, "a"))  # resume: samples 3 and 4
+    resumed = jdatasets.load_trajectory_dict(path)
+    np.testing.assert_array_equal(resumed["random_states"], [0, 1, 2, 3, 4])
+    np.testing.assert_array_equal(resumed["vorticity"][:3], w)
+    # a fresh run batches the samples differently ([2, 3], [4] against [2],
+    # [3, 4]); torch's c2r FFT on the CPU rounds by batch size, which the
+    # IC's pressure solve takes: the records agree to fp32 roundoff
+    fresh = jdatasets.load_trajectory_dict(main(argv(5, "b")))
+    np.testing.assert_allclose(resumed["vorticity"], fresh["vorticity"], rtol=0,
+                               atol=1e-5 * np.abs(fresh["vorticity"]).max())
+
+
+def test_kolmogorov_and_fno_initial_conditions(monkeypatch):
+    """The kolmogorov IC is the curl of a filtered velocity of maximum speed
+    --max-velocity (at the corners, as in JAX); the fno IC a GRF."""
+    from tpu_cfd_torch.ops import finite_differences as tfdm
+    from tpu_cfd_torch.solvers import initial_conditions as tic
+
+    grid = tgrids.Grid((N, N), domain=DOMAIN)
+    captured = {}
+
+    def fake_run(args, make_ic, forcing_fn=None, solver=None, example_name=""):
+        captured.update(args=args, ic=make_ic(np.arange(2), grid, torch.float64, "cpu"),
+                        forcing=forcing_fn, solver=solver, name=example_name)
+
+    monkeypatch.setattr(tgen, "run_generation", fake_run)
+    tgen.main_kolmogorov(["--no-cuda", "--seed", "3", "--grid-size", str(N)])
+    assert captured["name"] == "Kolmogorov2d" and captured["solver"] is None
+    assert captured["args"].gamma == 0.1 and captured["args"].max_velocity == 5.0
+    assert isinstance(captured["forcing"], tforcings.KolmogorovForcing)
+    assert not captured["forcing"].vorticity
+    noise = torch.stack([torch.randn((2, N, N), dtype=torch.float64,
+                                     generator=tic.sample_generator(3, i))
+                         for i in range(2)])
+    v = tic.filtered_velocity_field(grid, 5.0, 4, dtype=torch.float64, noise=noise)
+    assert torch.equal(captured["ic"], tfdm.curl_2d(v).data)
+
+    tgen.main_fno(["--no-cuda", "--seed", "3", "--grid-size", str(N)])
+    assert captured["name"] == "fnodata"
+    assert isinstance(captured["solver"], teq.IMEXStepper) and captured["solver"].order == 2
+    assert isinstance(captured["forcing"], tforcings.SinCosForcing)
+    assert (captured["args"].time, captured["args"].time_warmup,
+            captured["args"].diam) == (50.0, 30.0, 1.0)
+    assert tuple(captured["ic"].shape) == (2, N, N) and captured["ic"].dtype == torch.float32

@@ -257,3 +257,64 @@ def test_cli_trains_on_a_generated_dataset(tmp_path, monkeypatch):
     tds = SpatioTemporalDataset(path, n_samples=4, fields=["vorticity"], steps=10,
                                 out_steps=10)
     assert np.array_equal(jds.data["vorticity"], tds.data["vorticity"])
+
+
+# keys of the JAX run's log that the port's training CLI does not share with
+# it in meaning, and the file that the recipe run passes itself
+_LOG_KEYS_NOT_COMPARED = ("host_data", "device_data_limit_gb", "mxu_precision",
+                          "data_parallel", "train_file")
+
+
+def _literal(text: str):
+    import ast
+
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def test_recipe_accuracy_runs_the_jax_logs_arguments():
+    """The SFNO accuracy run trains with the arguments of the JAX run that
+    it is compared with (``logs/train_mc_r4.log``, line 1)."""
+    import pathlib
+
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    first = (root / "logs" / "train_mc_r4.log").read_text().splitlines()[0]
+    logged = dict(item.split("=", 1)
+                  for item in first.split("Arguments: ", 1)[1].split(" | "))
+    ours = vars(train.get_parser().parse_args(
+        recipe_accuracy.TRAIN + ["--train-file", "dataset.npz"]))
+    compared = [k for k in logged if k in ours and k not in _LOG_KEYS_NOT_COMPARED]
+    assert len(compared) >= 30
+    differ = {k: (ours[k], logged[k]) for k in compared
+              if ours[k] != _literal(logged[k])}
+    assert not differ, f"recipe_accuracy.TRAIN differs from the JAX log: {differ}"
+
+
+def test_recipe_accuracy_fno3d_runs_the_examples_defaults():
+    """The FNO3d accuracy run trains at ``examples/ex2_fno3d_train.py``'s
+    defaults, read from that script's argument parser."""
+    import ast
+    import pathlib
+
+    from tpu_cfd_torch.train import recipe_accuracy, train_fno3d
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    tree = ast.parse((root / "examples" / "ex2_fno3d_train.py").read_text())
+    defaults = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+                and node.args and isinstance(node.args[0], ast.Constant)):
+            kw = {k.arg: k.value for k in node.keywords}
+            if "default" in kw and isinstance(kw["default"], ast.Constant):
+                defaults[node.args[0].value.lstrip("-").replace("-", "_")] = \
+                    kw["default"].value
+    ours = vars(train_fno3d.get_parser().parse_args(
+        recipe_accuracy.FNO3D + ["--data-file", "dataset.npz"]))
+    compared = [k for k in defaults if defaults[k] is not None]
+    assert len(compared) >= 12
+    differ = {k: (ours[k], defaults[k]) for k in compared if ours[k] != defaults[k]}
+    assert not differ, f"recipe_accuracy.FNO3D differs from the example: {differ}"

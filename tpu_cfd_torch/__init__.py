@@ -8,14 +8,27 @@ the fused RK4-CN step as hand-written CUDA kernels
 ``train``), with the truncated 2-D DFT pair and the pointwise FFN as
 hand-written CUDA kernels (``ops/cuda/csrc/spectral_conv.cu``, ``ffn.cu``),
 the optimizer sweep of the SFNO train step with the one-pass Adam update as
-a hand-written CUDA kernel (``train/opt_layout.py``, ``adam.cu``), and FNO3d
-baseline training (``models/fno3d.py``, ``train/train_fno3d.py``).
+a hand-written CUDA kernel (``train/opt_layout.py``, ``adam.cu``), FNO3d
+baseline training (``models/fno3d.py``, ``train/train_fno3d.py``), and the
+Kolmogorov and FNO datasets (``data/generate.py``) with the pieces of the
+finite-volume stack that their initial conditions need: the grid data model
+and boundary conditions, finite differences, fast diagonalization and the
+pressure projection (``solvers/pressure.py``), and the GRF sampler
+(``data/grf.py``).
 """
 
 __version__ = "0.1.0"
 
 from tpu_cfd_torch import boundaries, grids
-from tpu_cfd_torch.grids import Grid, GridArray, GridVariable
+from tpu_cfd_torch.grids import (
+    Grid,
+    GridArray,
+    GridArrayTensor,
+    GridArrayVector,
+    GridVariable,
+    GridVariableVector,
+    applied,
+)
 from tpu_cfd_torch.boundaries import (
     BCType,
     ConstantBoundaryConditions,

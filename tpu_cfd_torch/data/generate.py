@@ -1,4 +1,5 @@
-"""Turbulence dataset generation on the card: the McWilliams2d CLI (PyTorch).
+"""Turbulence dataset generation on the card: the McWilliams2d, Kolmogorov2d
+and FNO CLIs (PyTorch).
 
 Counterpart of ``tpu_cfd/data/generate.py``. The per-batch pipeline is:
 initial vorticity -> warmup rollout -> recorded rollout in chunks, each
@@ -9,9 +10,12 @@ Usage (the JAX package's flags; ``--no-cuda`` runs on the CPU):
   python -m tpu_cfd_torch.data.generate mcwilliams --grid-size 256 \
       --subsample 4 --num-samples 1152 --batch-size 128 --visc 1e-3 \
       --time 10 --time-warmup 4.5 --dt 1e-3 --num-steps 100
+  python -m tpu_cfd_torch.data.generate kolmogorov --grid-size 256 \
+      --subsample 4 --num-samples 1152
+  python -m tpu_cfd_torch.data.generate fno --grid-size 256 --subsample 4 \
+      --num-samples 1280 --visc 1e-3 [--replicable-init]
 
-The ``kolmogorov`` and ``fno`` datasets and ``--data-parallel`` are not
-ported yet and raise ``NotImplementedError``.
+``--data-parallel`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,18 +32,15 @@ import torch.nn.functional as F
 
 from tpu_cfd_torch import grids
 from tpu_cfd_torch.data import data_utils
+from tpu_cfd_torch.data.grf import GRF2d
 from tpu_cfd_torch.device import resolve_device
-from tpu_cfd_torch.solvers import equations, initial_conditions as ic
+from tpu_cfd_torch.ops import finite_differences as fdm
+from tpu_cfd_torch.solvers import equations, forcings, initial_conditions as ic
 from tpu_cfd_torch.solvers import trajectories
 from tpu_cfd_torch.solvers.equations import (
+    IMEXStepper,
     NavierStokes2DSpectral,
     RK4CrankNicolsonStepper,
-)
-
-_NOT_PORTED = (
-    "is not ported to PyTorch yet: it waits for ROADMAP.md Queue A item 1 "
-    "(the kolmogorov and fno CLIs with filtered_velocity_field, GRF2d and the "
-    "FVM pieces they need); use `python -m tpu_cfd.data.generate` meanwhile"
 )
 
 
@@ -379,11 +380,66 @@ def main_mcwilliams(argv=None):
 
 
 def main_kolmogorov(argv=None):
-    raise NotImplementedError(f"the kolmogorov dataset {_NOT_PORTED}")
+    """Forced Kolmogorov flow with a drag of 0.1."""
+    parser = data_utils.get_args_ns2d("Generate NSE 2d Kolmogorov flow")
+    parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
+                        diam=2 * math.pi, gamma=0.1, max_velocity=5.0)
+    args = parser.parse_args(argv)
+    diam = data_utils.parse_diam(args.diam)
+    n = args.grid_size
+    grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
+    forcing = forcings.KolmogorovForcing(
+        grid=grid, scale=args.scale, wave_number=args.peak_wavenumber,
+        diam=diam, vorticity=False,
+    )
+
+    def make_ic(sample_ids, grid, dtype, device):
+        # the curl of a filtered divergence-free velocity, at the corners
+        # (offset (1, 1)) as the JAX package takes it
+        noise = torch.stack([
+            torch.randn((grid.ndim, *grid.shape), dtype=dtype, device=device,
+                        generator=ic.sample_generator(args.seed, i, device))
+            for i in sample_ids
+        ])
+        v = ic.filtered_velocity_field(
+            grid, maximum_velocity=args.max_velocity,
+            peak_wavenumber=args.peak_wavenumber, dtype=dtype, noise=noise)
+        return fdm.curl_2d(v).data
+
+    return run_generation(
+        args, make_ic, forcing_fn=forcing, example_name="Kolmogorov2d",
+    )
 
 
 def main_fno(argv=None):
-    raise NotImplementedError(f"the fno dataset {_NOT_PORTED}")
+    """The FNO paper's dataset: GRF initial vorticity, SinCos forcing, IMEX
+    order 2."""
+    parser = data_utils.get_args_ns2d("Generate the original FNO data for NSE in 2D")
+    parser.set_defaults(time=50.0, time_warmup=30.0, dt=1e-3, num_steps=100,
+                        diam=1.0, scale=0.1, alpha=2.5, tau=7.0, peak_wavenumber=1)
+    args = parser.parse_args(argv)
+    diam = data_utils.parse_diam(args.diam)
+    n = args.grid_size
+    grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
+    forcing = forcings.SinCosForcing(
+        grid=grid, scale=args.scale, diam=diam,
+        wave_number=args.peak_wavenumber, vorticity=True,
+    )
+    grf = GRF2d(n=n, alpha=args.alpha, tau=args.tau, normalize=args.normalize,
+                smoothing=args.replicable_init,
+                dtype=torch.float64 if args.double else torch.float32)
+
+    def make_ic(sample_ids, grid, dtype, device):
+        del dtype  # the sampler above is built at the compute dtype
+        return torch.cat([
+            grf.sample(ic.sample_generator(args.seed, i, device), bsz=1, n=n)
+            for i in sample_ids
+        ])
+
+    return run_generation(
+        args, make_ic, forcing_fn=forcing, solver=IMEXStepper(order=2),
+        example_name="fnodata",
+    )
 
 
 _MAINS = {

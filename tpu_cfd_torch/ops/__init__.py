@@ -1,1 +1,2 @@
-"""Discrete operators: spectral calculus, dense DFTs, and CUDA kernels."""
+"""Discrete operators: spectral calculus, dense DFTs, finite differences,
+fast diagonalization, interpolation, and CUDA kernels."""

@@ -1,5 +1,5 @@
 """Solver runtime: equations, time steppers, forcings, initial conditions,
-and trajectory rollout."""
+the pressure projection, and trajectory rollout."""
 
 from tpu_cfd_torch.solvers.equations import (
     IMEXStepper,
@@ -14,7 +14,11 @@ from tpu_cfd_torch.solvers.forcings import (
     SimpleSolenoidalForcing,
     SinCosForcing,
 )
-from tpu_cfd_torch.solvers.initial_conditions import vorticity_field
+from tpu_cfd_torch.solvers.initial_conditions import (
+    filtered_velocity_field,
+    vorticity_field,
+)
+from tpu_cfd_torch.solvers.pressure import PressureProjection, Pseudoinverse
 from tpu_cfd_torch.solvers.trajectories import (
     get_trajectory_imex,
     update_residual,

@@ -297,6 +297,7 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self._forcing_hat = None
         if self.solver is None:
             self.solver = RK4CrankNicolsonStepper()
         if self.fused:
@@ -374,17 +375,26 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
             terms = terms * self.filter
 
         if self.forcing_fn is not None:
-            # evaluated in the solver dtype: fp64 runs need an fp64 forcing
-            kw = dict(dtype=vx.dtype, device=vx.device)
-            if not self.forcing_fn.vorticity:
-                fx, fy = self.forcing_fn(self.grid, (vx, vy), **kw)
-                fx_hat = self._rfft2(fx.data.to(vx.dtype))
-                fy_hat = self._rfft2(fy.data.to(vx.dtype))
-                terms = terms + spectral_curl_2d((fx_hat, fy_hat), (self.kx, self.ky))
-            else:
-                f = self.forcing_fn(self.grid, vort_hat, **kw)
-                terms = terms + self._rfft2(f.data.to(vx.dtype))
+            terms = terms + self._forcing_term()
         return terms
+
+    def _forcing_term(self) -> Tensor:
+        """The forcing's spectrum in the internal layout and the solver dtype
+        (fp64 runs need an fp64 forcing), evaluated at first use. Every
+        ForcingFn is state-independent, and an evaluation builds its mesh on
+        the host: its copy to the card would wait for the stream at every
+        explicit step."""
+        if self._forcing_hat is None:
+            kw = dict(dtype=self.dtype, device=self.device)
+            if not self.forcing_fn.vorticity:
+                fx, fy = self.forcing_fn(self.grid, None, **kw)
+                fx_hat = self._rfft2(fx.data.to(self.dtype))
+                fy_hat = self._rfft2(fy.data.to(self.dtype))
+                self._forcing_hat = spectral_curl_2d((fx_hat, fy_hat), (self.kx, self.ky))
+            else:
+                self._forcing_hat = self._rfft2(
+                    self.forcing_fn(self.grid, None, **kw).data.to(self.dtype))
+        return self._forcing_hat
 
     def explicit_terms(self, vort_hat: Tensor) -> Tensor:
         shape_in = tuple(vort_hat.shape[-2:])
@@ -411,12 +421,7 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
         if self.fused:
             from tpu_cfd_torch.ops.cuda import spectral_step
 
-            f_hat = None
-            if self.forcing_fn is not None:
-                # every ForcingFn is state-independent: the forcing term is
-                # the explicit terms of the zero state, folded in as a constant
-                f_hat = self._explicit_terms(
-                    vort_hat.new_zeros(vort_hat.shape[-2:]))
+            f_hat = self._forcing_term() if self.forcing_fn is not None else None
             rollout = (
                 spectral_step.fused_rollout_galerkin
                 if self.fft_impl == "dft_galerkin"

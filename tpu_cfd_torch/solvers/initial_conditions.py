@@ -1,31 +1,35 @@
-"""McWilliams-1984 initial vorticity (PyTorch).
+"""Initial conditions: filtered divergence-free velocity and McWilliams vorticity.
 
-Counterpart of the McWilliams part of ``tpu_cfd/solvers/initial_conditions.py``.
-``filtered_velocity_field`` and ``project_and_normalize`` need the FVM
-pressure projection and are not ported yet.
+Counterpart of ``tpu_cfd/solvers/initial_conditions.py``. Fields may carry
+leading batch dims: where the JAX package maps one sample at a time, these
+take a batch, and every reduction (the energy of ``streamfunc_normalize``,
+the maximum speed of ``project_and_normalize``) runs per sample over the
+grid dims.
 
 Randomness: each sample draws from its own ``torch.Generator``, seeded from
 ``(seed, sample_id)`` by ``sample_generator``, so a resumed run draws the same
 noise for the same sample. That stream differs from the JAX package's
 ``jax.random.fold_in(key, sample_id)``: datasets of the two packages match in
 distribution, not bit for bit. Tests feed both the same noise through the
-``noise=`` argument of ``vorticity_field``.
+``noise=`` arguments.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tpu_cfd_torch import boundaries, grids
+from tpu_cfd_torch.solvers import pressure
 
 Tensor = torch.Tensor
 Grid = grids.Grid
 GridArray = grids.GridArray
 GridVariable = grids.GridVariable
+GridVariableVector = grids.GridVariableVector
 
 
 def sample_generator(seed: int, sample_id: int, device="cpu") -> torch.Generator:
@@ -35,9 +39,25 @@ def sample_generator(seed: int, sample_id: int, device="cpu") -> torch.Generator
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def wrap_velocities(v: Sequence[Tensor], grid: Grid, bcs: Sequence[object]
+                    ) -> GridVariableVector:
+    """Wraps raw velocity tensors on the cell faces."""
+    return GridVariableVector(tuple(
+        GridVariable(GridArray(u, offset, grid), bc)
+        for u, offset, bc in zip(v, grid.cell_faces, bcs)
+    ))
+
+
 def wrap_vorticity(w: Tensor, grid: Grid, bc: object) -> GridVariable:
     """Wraps a raw vorticity tensor at cell centers."""
     return GridVariable(GridArray(w, grid.cell_center, grid), bc)
+
+
+def _log_normal_density(k: Tensor, mode: float, variance: float = 0.25) -> Tensor:
+    """Unscaled log-normal density peaked at ``mode``."""
+    mean = math.log(mode) + variance
+    logk = torch.log(k)
+    return torch.exp(-((mean - logk) ** 2) / 2 / variance - logk)
 
 
 def McWilliams_density(k: Tensor, mode: float, tau: float = 1.0) -> Tensor:
@@ -107,3 +127,69 @@ def vorticity_field(
                                 dim=(-2, -1)).real
     bc = boundaries.periodic_boundary_conditions(grid.ndim)
     return wrap_vorticity(vorticity, grid, bc)
+
+
+def project_and_normalize(
+    v: GridVariableVector,
+    maximum_velocity: float = 1,
+    projection: Optional[pressure.PressureProjection] = None,
+) -> GridVariableVector:
+    """Projects ``v`` to be divergence-free, then scales each sample to a
+    maximum speed of ``maximum_velocity``."""
+    grid = grids.consistent_grid_arrays(*v)
+    if projection is None:
+        pressure_bc = boundaries.get_pressure_bc_from_velocity(v)
+        projection = pressure.PressureProjection(grid, pressure_bc, dtype=v.dtype)
+    v = projection(v)
+    speed = torch.linalg.vector_norm(torch.stack([u.data for u in v]), dim=0)
+    # one maximum a sample, over the grid dims: a batch-wide maximum would
+    # scale every sample by the fastest one's speed
+    vmax = speed.amax(dim=tuple(range(-grid.ndim, 0)), keepdim=True)
+    return GridVariableVector(
+        tuple(GridVariable(maximum_velocity * u.array / vmax, u.bc) for u in v)
+    )
+
+
+def filtered_velocity_field(
+    grid: Grid,
+    maximum_velocity: float = 1,
+    peak_wavenumber: float = 3,
+    iterations: int = 3,
+    dtype=torch.float32,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Tensor] = None,
+    device=None,
+) -> GridVariableVector:
+    """Divergence-free velocity with a log-normal energy spectrum.
+
+    White noise per component is filtered to a density peaked at
+    ``peak_wavenumber`` (divided by k^(ndim-1), the shell's volume), then
+    projected and renormalized ``iterations`` times. The noise is ``noise``
+    (shape ``(..., ndim, *grid.shape)``; leading dims are samples) or one
+    standard-normal draw of ``(ndim, *grid.shape)`` from ``generator``, the
+    components in order, on ``device`` (the generator's device by default).
+    """
+    if noise is None:
+        if generator is None:
+            raise ValueError("filtered_velocity_field needs a generator or a noise tensor")
+        device = generator.device if device is None else device
+        noise = torch.randn((grid.ndim, *grid.shape), generator=generator, dtype=dtype,
+                            device=device)
+    noise = noise.to(dtype=dtype, device=device if device is not None else noise.device)
+    if tuple(noise.shape[-grid.ndim - 1:]) != (grid.ndim, *grid.shape):
+        raise ValueError(f"noise of shape {tuple(noise.shape)} does not end with "
+                         f"{(grid.ndim, *grid.shape)}")
+
+    def spectral_density(k):
+        return _log_normal_density(k, peak_wavenumber) / k ** (grid.ndim - 1)
+
+    bcs = [boundaries.periodic_boundary_conditions(grid.ndim)] * grid.ndim
+    components = [spectral_filter(spectral_density, noise.select(-grid.ndim - 1, i), grid)
+                  for i in range(grid.ndim)]
+    velocity = wrap_velocities(components, grid, bcs)
+    # repeated projection and normalization removes the roundoff drift
+    pressure_bc = boundaries.get_pressure_bc_from_velocity(velocity)
+    projection = pressure.PressureProjection(grid, pressure_bc, dtype=dtype)
+    for _ in range(iterations):
+        velocity = project_and_normalize(velocity, maximum_velocity, projection)
+    return velocity

@@ -8,11 +8,14 @@ Run from the root of a checkout on one card:
    1e-3, T = 10 of which 4.5 warm-up, dt 1e-3, 100 records; batch 32):
    1.15e7 sample-steps. The CLI resumes from its part files, so a second run
    on the same ``--data-dir`` continues where one stopped;
-2. trains the SFNO at the recipe (width 10, modes 32/5, 4 layers, 10 -> 10
-   steps, batch 64, GELU) for 15 epochs on it with the training CLI, and
+2. trains the SFNO with the arguments of the JAX run it is compared with
+   (``logs/train_mc_r4.log``, line 1: width 10, modes 32/5, 4 layers,
+   10 -> 10 steps, GELU, batch 4, 128 validation samples, lr 1e-2, seed
+   1127825, norm order 0) for 15 epochs on it with the training CLI, and
    reports the validation rel-L2 (the JAX package's: 3.10e-2, README.md);
-3. trains the FNO3d baseline at the example's defaults (modes 32/5, width
-   10, batch 4) for 10 epochs on its first 1,024 samples and reports the test
+3. trains the FNO3d baseline at the defaults of
+   ``examples/ex2_fno3d_train.py`` (modes 32/5, width 10, batch 4, lr 1e-3,
+   seed 42) for 10 epochs on its first 1,024 samples and reports the test
    rel-L2 on the next 32 (the JAX package's: 9.67e-2).
 
 Prints one JSON line with the card's name and power limit, each stage's wall
@@ -33,11 +36,18 @@ import torch
 GENERATE = ["--grid-size", "256", "--subsample", "4", "--num-samples", "1152",
             "--batch-size", "32", "--visc", "1e-3", "--time", "10",
             "--time-warmup", "4.5", "--dt", "1e-3", "--num-steps", "100"]
+# the arguments of logs/train_mc_r4.log, the JAX run behind 3.10e-2
+# (tests/test_torch_train.py holds them against that log)
 TRAIN = ["--example", "McWilliams2d", "--epochs", "15", "--num-samples", "1152",
-         "--num-val-samples", "64", "--batch-size", "64", "--width", "10",
+         "--num-val-samples", "128", "--batch-size", "4", "--lr", "1e-2",
+         "--seed", "1127825", "--norm-order", "0", "--width", "10",
          "--modes", "32", "--modes-t", "5", "--num-layers", "4", "--time-steps", "10",
          "--out-time-steps", "10", "--activation", "GELU", "--train-only"]
-FNO3D = ["--num-samples", "1024", "--num-test-samples", "32", "--epochs", "10"]
+# the defaults of examples/ex2_fno3d_train.py, the JAX run behind 9.67e-2
+FNO3D = ["--num-samples", "1024", "--num-test-samples", "32", "--epochs", "10",
+         "--batch-size", "4", "--lr", "1e-3", "--modes", "32", "--modes-t", "5",
+         "--width", "10", "--time-steps", "10", "--t-start", "10", "--res", "64",
+         "--seed", "42"]
 
 
 def main(argv=None) -> int:
