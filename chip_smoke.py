@@ -82,7 +82,35 @@ printing no result, when either is missing or any phase fails:
    ``--replicable-init`` (the GRF's noise drawn at 2048² on the card),
    checks the datasets and that no spectral-step kernel launched, and times
    the IMEX-2 rollout at b=8 and the full dataset's b=64 for the dataset's
-   cost (median of five calls, range).
+   cost (median of five calls, range);
+12. drives the seventh main path, ``python -m
+   tpu_cfd_torch.examples.ex2_sfno_finetune --example McWilliams2d
+   --gt-floor --lr-decay 0.05`` at 256² in fp64 with eval modes (64, 64, 6)
+   on the SFNO that phase 6 trained (the recipe's widths), on an fp64 test
+   set it generates (``generate mcwilliams --double --subsample 1``, 8
+   samples at b=8, 70 records: the example reads frames 50-69), cut to 10
+   iterations; checks that everything is finite, that the best residual is
+   no more than iteration 0's and that no kernel launched (the fp64 route,
+   as in JAX); holds ``fine_tune_post`` on the card against the CPU on the
+   same frames (the fields within ``FT_DEVICE_TOL`` of the largest
+   ∂w/∂t, the GT floors within the norm of their residuals' difference),
+   and the residual norm and one step's gradients at dt 1e-3; prints the
+   zero-shot forward's, the GT floor's and an iteration's ms;
+12b. drives the eighth main path, ``python -m
+   tpu_cfd_torch.examples.ex2_train_and_finetune`` as it is (fp32: 128²
+   McWilliams data, 5 epochs of a 3-layer SFNO, 30 fine-tune steps), checks
+   that its histories are finite and that the kernels its shapes route to
+   launched exactly as counted (the RK4-CN stage ``steps × 5`` where the
+   dataset took the fused route, the FFN once a layer a forward pass, the
+   DFT pair where ``fused_pair_wins`` names it);
+13. steps the FVM solver (``solvers/fvm.py``) at the constants of
+   ``examples/ex1_kolmogorov_fvm.py``: 128², ``filtered_velocity_field``
+   with maximum velocity 3, peak wavenumber 3 and 3 projections,
+   ``stable_time_step`` at Courant 0.5, Kolmogorov forcing (wave 3) and drag
+   0.1, classic RK4 with projection, 10 frames of 20 steps, in fp64 and in
+   fp32; checks that everything is finite and divergence-free (1e-12 in
+   fp64, 1e-4 in fp32), holds the card against the CPU after 20 fp64 steps
+   (``FVM_DEVICE_TOL``), and prints the ms a step. No kernel runs here.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -129,6 +157,20 @@ SWEEP_PARAMS = 9_242_461
 FNO3D_PARAMS = 16_386_997
 LEAVES = 52  # parameter leaves of a 4-layer SFNO: the Adam kernel updates a step
 GATE_ROUNDS = 7  # rounds of the train-step route gate (phase 7)
+FT_ITERS = 10  # fine-tune iterations of main path 7 (the recipe runs 160)
+# card vs CPU in fp64 (phase 12): cuFFT and pocketfft differ at roundoff, and
+# the ±dt difference divides it by dt; fields over the largest |∂w/∂t|, the
+# dt 1e-3 norm relative, gradients over each leaf's largest entry
+FT_DEVICE_TOL = 1e-8
+# the GT floor card vs CPU, relative: the norm of a residual far smaller than
+# w_t, so the fields' roundoff weighs more in it than in FT_DEVICE_TOL's
+# comparison; read 6.3e-8 apart (NVIDIA H100 80GB HBM3, 700 W), held to 16x
+FT_FLOOR_TOL = 1e-6
+# the FVM example (examples/ex1_kolmogorov_fvm.py): 128^2, 10 frames of 20 steps
+FVM_N, FVM_FRAMES, FVM_INNER = 128, 10, 20
+# card vs CPU after 20 fp64 steps: FFT roundoff through a scheme whose flux
+# is continuous in its inputs (the limiter's switches are scaled by the jump)
+FVM_DEVICE_TOL = 1e-10
 
 
 def _require(ok: bool, what: str) -> None:
@@ -645,6 +687,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train_launches = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
+    sfno_ckpt = run["checkpoint"]  # phase 12 fine-tunes this model
     hist = run["history"]
     print(f"main path 2: train.main at the recipe, {run['n_params']} parameters, "
           f"2 epochs x 2 steps + 2 val batches in {wall:.2f} s, launches "
@@ -917,7 +960,8 @@ def main() -> int:
             print(f"profile {route}:   {ms_:8.3f} ms/step  x{count:5.1f}  {name}",
                   flush=True)
         return {"busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
-                "sfno_kernels_ms_per_step": ours}
+                "sfno_kernels_ms_per_step": ours,
+                "launches_per_step": sum(e.count for e in kern) / steps}
 
     # the SFNO train step at the recipe, three routes, same parameters
     with np.load(data_path) as z:
@@ -1279,7 +1323,302 @@ def main() -> int:
           + "; the full fno dataset (1,280 samples x 5e4 steps) would take "
           + ", ".join(f"{h['median']:.2f} h ({h['max']:.2f}-{h['min']:.2f}) at b{b}"
                       for b, h in full_h.items()), flush=True)
+    # -- 12. main path 7: the fine-tune example at 256^2 in fp64 --------------
+    from tpu_cfd_torch.data.datasets import SpatioTemporalDataset
+    from tpu_cfd_torch.examples import ex2_sfno_finetune, ex2_train_and_finetune
+    from tpu_cfd_torch.train import finetune
+
+    kernel_modules = (ss, sc, ffn_ops, adam_ops)
+
+    def launch_counts() -> dict:
+        return {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
+
+    # the example's test set: fp64 256^2 McWilliams trajectories, 70 records
+    # (the example reads frames 50-69), 8 samples at b=8
+    ft_argv = ["--grid-size", str(N), "--subsample", "1", "--double",
+               "--num-samples", "8", "--batch-size", "8", "--time", "0.8",
+               "--time-warmup", "0.1", "--dt", str(DT), "--num-steps", "70",
+               "--filepath", os.path.join(tmp, "fp64")]
+    t0 = time.perf_counter()
+    ft_data = generate.main_mcwilliams(ft_argv)
+    ft_gen_s = time.perf_counter() - t0
+    with np.load(ft_data) as z:
+        ftv = z["vorticity"]
+    print(f"main path 7: fp64 test set {ftv.shape} {ftv.dtype} in {ft_gen_s:.2f} s",
+          flush=True)
+    _require(ftv.dtype == np.float64 and ftv.shape == (8, 70, N, N)
+             and bool(np.isfinite(ftv).all()), "the fp64 256^2 test set")
+    for mod in kernel_modules:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    ft = ex2_sfno_finetune.main(["--example", "McWilliams2d", "--res", str(N), "--test-file", ft_data,
+                                 "--ckpt", sfno_ckpt, "--gt-floor", "--lr-decay", "0.05",
+                                 "--iters", str(FT_ITERS)])
+    torch.cuda.synchronize()
+    ft_wall = time.perf_counter() - t0
+    ft_launches = launch_counts()
+    ft_res = [h["residual"] for h in ft["history"]]
+    iter_ms = sorted(1e3 * t for t in ft["iter_seconds"][1:-1])
+    ft_row = {"seconds": ft_wall, "zero_shot_rel_l2": ft["zero_shot_rel_l2"],
+              "gt_floor": ft["gt_floor"], "iter0": ft_res[0], "best": ft["best"],
+              "best_iter": ft["best_iter"], "last": ft_res[-1],
+              "zero_shot_ms": ft["zero_shot_ms"], "gt_floor_ms": ft["gt_floor_ms"],
+              "iter_ms_median": iter_ms[len(iter_ms) // 2],
+              "iter_ms_range": [iter_ms[0], iter_ms[-1]], "launches": ft_launches,
+              "generate_s": ft_gen_s}
+    print(f"main path 7: ex2_sfno_finetune McWilliams2d 256^2 fp64, {FT_ITERS} iterations "
+          f"in {ft_wall:.2f} s: zero-shot rel-L2 {ft['zero_shot_rel_l2']:.5e}, GT floor "
+          f"{ft['gt_floor']:.4e}, iter 0 {ft_res[0]:.4e}, best {ft['best']:.4e} at iter "
+          f"{ft['best_iter']}, last {ft_res[-1]:.4e}; zero-shot forward "
+          f"{ft['zero_shot_ms']:.1f} ms, GT floor {ft['gt_floor_ms']:.1f} ms, "
+          f"{ft_row['iter_ms_median']:.2f} ms an iteration (median of the {len(iter_ms)} "
+          f"after the first, range {iter_ms[0]:.2f}-{iter_ms[-1]:.2f}) on {card}; kernel "
+          f"launches {ft_launches}", flush=True)
+    _require(all(np.isfinite([h[k] for h in ft["history"] for k in h]))
+             and np.isfinite(ft["zero_shot_rel_l2"]) and np.isfinite(ft["gt_floor"]),
+             "finite fine-tune history, zero-shot error and GT floor")
+    _require(min(ft_res[1:]) < ft_res[0],
+             "the fine-tune takes the residual below iteration 0's")
+    _require(not any(ft_launches.values()),
+             f"no hand-written kernel on the fp64 fine-tune: {ft_launches}")
+
+    # card against CPU from the same trajectory: fine_tune_post's fields at
+    # the example's dt (the gate) and the GT floor they give, then the norm
+    # and one step's gradients at dt 1e-3, where the O(dt^2) residual stands
+    # far above the roundoff that the +-dt difference divides by dt
+    ft_ds = SpatioTemporalDataset(ft_data, n_samples=16, fields=["vorticity"], steps=10,
+                                  out_steps=10, T_start=50, train=False, dtype=np.float64)
+    ft_in, ft_gt = (torch.from_numpy(x["vorticity"]) for x in ft_ds.sample(np.array([1])))
+    diam = 2 * np.pi
+    res_hm1 = losses.SobolevLoss(n_grid=N, norm_order=-1, relative=False,
+                                 time_average=True, alpha=10 ** (-3 / 2),
+                                 freq_cutoff=N // 2 + 1, diam=diam)
+    post = {}
+    places = (("card", dev), ("cpu", torch.device("cpu")))
+    for where, d in places:
+        with torch.no_grad():
+            o = finetune.fine_tune_post(
+                ft_gt.to(d), torch.zeros((1, N, N), dtype=torch.float64, device=d),
+                visc=1e-3, dt=1e-6, diam=diam, bdf_weight=(0.5, 0.5))
+        post[where] = {k: v.cpu() for k, v in o.items()}
+    wt_scale = float(post["cpu"]["w_t"].abs().max())
+    post_err = {k: float((post["card"][k] - post["cpu"][k]).abs().max()) / wt_scale
+                for k in post["cpu"]}
+    floors = {k: float(res_hm1(v["residual"])) for k, v in post.items()}
+    floor_err = abs(floors["card"] - floors["cpu"]) / floors["cpu"]
+    trained = SFNO(modes_x=rm, modes_y=rm, modes_t=RECIPE["modes_t"], width=rw,
+                   output_steps=rt)
+    tpipe.load_checkpoint(sfno_ckpt, trained)
+    ft_grads, ft_norms, ft_models = {}, {}, {}
+    for where, d in places:
+        m = finetune.build_finetune_outconv(
+            trained.out_conv.conv, (rm, rm, RECIPE["modes_t"]), (64, 64, 6), out_steps=rt,
+            generator=torch.Generator().manual_seed(1), dtype=torch.float64, device=d,
+            delta=1.0, diam=diam, visc=1e-3, dt=1e-3, bdf_weight=(0.5, 0.5))
+        out = m(ft_in[..., None].to(d), ft_in.to(d), None, out_steps=rt)
+        loss = res_hm1(out["residual"])
+        loss.backward()
+        ft_models[where] = m
+        ft_norms[where] = float(loss)
+        ft_grads[where] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    grad_err = max(float((ft_grads["card"][k] - g).abs().max() / g.abs().max())
+                   for k, g in ft_grads["cpu"].items())
+    norm_err = abs(ft_norms["card"] - ft_norms["cpu"]) / ft_norms["cpu"]
+    ft_row["card_vs_cpu"] = {"fields_over_max_w_t": post_err, "gt_floor": floors,
+                             "gt_floor_rel": floor_err, "norm_dt1e-3_rel": norm_err,
+                             "grad_dt1e-3_rel": grad_err}
+    print(f"main path 7: card vs CPU, fine_tune_post at dt 1e-6: max err / max|w_t| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in post_err.items())
+          + f" (tol {FT_DEVICE_TOL}); GT floor {floors['card']:.9e} / {floors['cpu']:.9e}, "
+          f"relative difference {floor_err:.3e} (tol {FT_FLOOR_TOL}); at dt 1e-3 the "
+          f"residual norm {norm_err:.3e} and one step's gradients {grad_err:.3e} of the largest entry "
+          f"(tol {FT_DEVICE_TOL})", flush=True)
+    _require(max(post_err.values()) < FT_DEVICE_TOL, "fine_tune_post card vs CPU")
+    _require(floor_err < FT_FLOOR_TOL, "GT floor card vs CPU")
+    _require(abs(ft["gt_floor"] - floors["card"]) <= 1e-12 * floors["card"],
+             "the example's GT floor is fine_tune_post's on the same frames")
+    _require(norm_err < FT_DEVICE_TOL and grad_err < FT_DEVICE_TOL,
+             "residual norm and gradients card vs CPU at dt 1e-3")
+    # where an iteration's time goes: the card's busy share over one update,
+    # forward and backward of the fine-tune at the example's shapes
+    ft_card = ft_models["card"]
+    ft_opt = finetune.groupwise_adam(1e-4, 1e-2, ft_card.named_parameters())
+    ft_x, ft_res_in = ft_in[..., None].to(dev), ft_in.to(dev)
+
+    def ft_iteration():
+        ft_opt.zero_grad(set_to_none=True)
+        res_hm1(ft_card(ft_x, ft_res_in, None, out_steps=rt)["residual"]).backward()
+        ft_opt.step()
+
+    ft_iteration()
+    ft_row["profile"] = profile_steps("fine-tune iteration fp64", ft_iteration, 5)
+    del trained, post, ft_grads, ft_models, ft_card, ft_opt
+
+    # -- 12b. main path 8: the fp32 demo, generate -> train -> fine-tune -------
+    for mod in kernel_modules:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    demo = ex2_train_and_finetune.main(["--workdir", os.path.join(tmp, "demo")])
+    torch.cuda.synchronize()
+    demo_wall = time.perf_counter() - t0
+    demo_launches = launch_counts()
+    with open(demo["data_path"] + ".meta.json") as f:
+        demo_meta = json.load(f)
+    # the dataset CLI's step count at the demo's arguments (data/generate.py)
+    g = dict(zip(ex2_train_and_finetune.GENERATE[::2], ex2_train_and_finetune.GENERATE[1::2]))
+    g_dt = float(g["--dt"])
+    g_total = int((float(g["--time"]) - float(g["--time-warmup"])) / g_dt)
+    g_every = max(1, g_total // int(g["--num-steps"]))
+    g_records = -(-g_total // g_every)  # 25 at the demo's arguments
+    demo_steps = (int(g["--num-samples"]) // int(g["--batch-size"])) * (
+        int(float(g["--time-warmup"]) / g_dt) + 1 + (g_records - 1) * g_every)
+    fused = int(demo_meta["fft_impl"] == "dft_galerkin_fused")
+    layers = ex2_train_and_finetune.MODEL["num_spectral_layers"]
+    lat, width, mx = (ex2_train_and_finetune.MODEL[k] for k in ("latent_steps", "width",
+                                                                  "modes_x"))
+    dn = int(g["--grid-size"]) // int(g["--subsample"])
+    # each SpectralConvS: a train step launches each transform twice (its
+    # forward and its partner's backward), a forward pass once
+    pair_train = int(fused_pair_wins(dn, dn, mx, mx, ex2_train_and_finetune.BATCH * lat * width))
+    pair_pred = int(fused_pair_wins(dn, dn, mx, mx, lat * width))
+    n_train = demo["train_steps"]
+    want = {**{k: demo_steps * 5 * fused for k in ("inverse_first", "advect", "forward_first")},
+            "ffn": layers * (n_train + 1),
+            **{k: (layers - 1) * (2 * n_train * pair_train + pair_pred)
+               for k in ("modes", "inverse", "modes_fused", "inverse_fused")},
+            "adam": 0, "adam_leaves": 0}
+    demo_row = {"seconds": demo_wall, "fft_impl": demo_meta["fft_impl"],
+                "train_history": demo["train_history"],
+                "finetune_history": demo["finetune_history"], "launches": demo_launches,
+                "expected_launches": want}
+    print(f"main path 8: ex2_train_and_finetune in {demo_wall:.2f} s: dataset "
+          f"{demo_meta['fft_impl']} ({demo_steps} steps), {n_train} train steps, losses "
+          f"{demo['train_history']}, fine-tune residual {demo['finetune_history'][0]:.3e} -> "
+          f"{demo['finetune_history'][-1]:.3e}; launches {demo_launches}, expected {want}",
+          flush=True)
+    _require(all(np.isfinite(demo["train_history"] + demo["finetune_history"])),
+             "finite demo histories")
+    _require(demo_launches == want, f"demo launches {demo_launches}, expected {want}")
+
+    # the demo's kernel instances at its own shapes, each against its plain
+    # version: the 128^2 b4 rollout from the CLI's IC (advect_layout tiles
+    # 128^2 otherwise than 256^2), the DFT pair at 64^2 m12 on the train
+    # step's and the prediction's planes, the FFN's instance on their rows
+    dsz, db = int(g["--grid-size"]), int(g["--batch-size"])
+    dgrid = grids.Grid((dsz, dsz), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+    demo_ns = NavierStokes2DSpectral(
+        viscosity=demo_meta["visc"], grid=dgrid, fft_impl="dft_galerkin", fused=True,
+        mxu_precision=demo_meta["mxu_precision"], device=dev)
+    dnoise = torch.stack([
+        torch.randn(dgrid.shape, device=dev,
+                    generator=ic.sample_generator(demo_meta["seed"], i, dev))
+        for i in range(db)])
+    dw_hat = demo_ns._align(torch.fft.rfft2(ic.vorticity_field(dgrid, 4, noise=dnoise).data))
+    dc = ss.constants("galerkin", dgrid, demo_ns.viscosity, demo_ns.drag, g_dt, dev)
+    got = ss._fused_rollout(
+        dw_hat, layout="galerkin", grid=dgrid, viscosity=demo_ns.viscosity,
+        drag=demo_ns.drag, dt=g_dt, steps=10, forcing_hat=None,
+        precision=demo_ns.mxu_precision, block_cols="auto")
+    torch.cuda.synchronize()
+    want_r = ss._fused_rollout_plain(dw_hat, dc, 10, ss.resolve_block_cols("auto", dsz, dc["m"]))
+    torch.cuda.synchronize()
+    demo_err = {"rollout_rel_l2": rel(got, want_r)}
+    print(f"main path 8: fused Galerkin rollout {dsz}^2 b{db}, viscosity "
+          f"{demo_meta['visc']}, 10 steps from the CLI's IC: rel-L2 kernel vs plain "
+          f"{demo_err['rollout_rel_l2']:.3e} (tol {ROLLOUT_TOL})", flush=True)
+    _require(bool(torch.isfinite(got).all()), "finite demo rollout")
+    _require(demo_err["rollout_rel_l2"] < ROLLOUT_TOL, "demo rollout vs plain")
+    dcc = _dft2d_constants(dn, dn, mx, mx, str(dev), "complex64")
+    demo_ffn = next(m for m in SFNO(**ex2_train_and_finetune.MODEL).modules()
+                    if isinstance(m, sfno_mod.PointwiseFFN))
+    d0, d1 = demo_ffn.dense_0, demo_ffn.dense_1
+    for b in (ex2_train_and_finetune.BATCH, 1):
+        v = torch.randn(b, lat * width, dn, dn, device=dev, generator=gen)
+        gg = torch.randn(b, lat * width, 2 * mx, 2 * mx, dtype=torch.complex64,
+                         device=dev, generator=gen)
+        tag = f"demo {dn}^2 m{mx} {b * lat * width} planes"
+        demo_err[f"dft2d_modes_{b * lat * width}"] = check(
+            f"dft2d_modes {tag}", sc.modes(v, dcc), sc._modes_plain(v, dcc))
+        demo_err[f"dft2d_inverse_{b * lat * width}"] = check(
+            f"dft2d_inverse {tag}", sc.inverse(gg, 1.0 / (dn * dn * lat), dcc),
+            sc._inverse_plain(gg, 1.0 / (dn * dn * lat), dcc))
+        rows = b * dn * dn * lat
+        x = torch.randn(rows, d0.in_features, device=dev, generator=gen)
+        w = [torch.randn(*t.shape, device=dev, generator=gen) * a for t, a in (
+            (d0.weight, 0.3), (d0.bias, 0.1), (d1.weight, 0.15), (d1.bias, 0.1))]
+        demo_err[f"pointwise_ffn_{rows}"] = check(
+            f"pointwise_ffn demo {rows} rows {d0.in_features}->{d0.out_features}->"
+            f"{d1.out_features} {demo_ffn.activation}",
+            ffn_ops.ffn_forward(x, *w, demo_ffn.activation),
+            ffn_ops._ffn_plain(x, *w, demo_ffn.activation))
+    demo_row["kernel_vs_plain"] = demo_err
+    del demo_ns, dnoise, dw_hat, dc, got, want_r, v, gg, x, w
     tmp_ctx.cleanup()
+
+    # -- 13. the FVM solver at the Kolmogorov FVM example's constants --------
+    from tpu_cfd_torch.solvers import fvm
+    from tpu_cfd_torch.solvers.equations import stable_time_step
+
+    vgrid = grids.Grid((FVM_N, FVM_N), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+    vdt = stable_time_step(dx=min(vgrid.step), max_velocity=3.0, max_courant_number=0.5,
+                           viscosity=1e-3)
+    vnoise = torch.randn((2, FVM_N, FVM_N), dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(42))
+
+    def fvm_setup(dtype, device):
+        """The example's IC and equation: max velocity 3, peak wavenumber 3,
+        3 projections; Kolmogorov forcing (wave 3) at the velocity's offsets,
+        drag 0.1, classic RK4 with a projection after each stage."""
+        v = ic.filtered_velocity_field(vgrid, 3.0, 3, iterations=3, dtype=dtype,
+                                       noise=vnoise, device=device)
+        eqn = fvm.NavierStokes2DFVMProjection(
+            viscosity=1e-3, grid=vgrid, density=1.0, drag=0.1,
+            forcing=forcings.KolmogorovForcing(grid=vgrid, diam=2 * np.pi, wave_number=3,
+                                               offsets=(v[0].offset, v[1].offset)),
+            solver=fvm.RKStepper.from_method("classic_rk4"), dtype=dtype)
+        return v, eqn
+
+    fvm_rows = {}
+    for dtype in (torch.float64, torch.float32):
+        v, eqn = fvm_setup(dtype, dev)
+        eqn(v, vdt)  # the forcing, the FFT plans and the solver's constants
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = []
+        for _ in range(FVM_FRAMES):
+            for _ in range(FVM_INNER):
+                v = eqn(v, vdt)
+            frames.append(fdm.curl_2d(v).data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fdiv = float(fdm.divergence(v).data.abs().max())
+        finite = bool(torch.isfinite(torch.stack(frames)).all()) and all(
+            bool(torch.isfinite(u.data).all()) for u in v)
+        tag = str(dtype).split(".")[-1]
+        fvm_rows[tag] = {"ms_per_step": 1e3 * wall / (FVM_FRAMES * FVM_INNER),
+                         "max_div": fdiv, "finite": finite, "dt": vdt}
+        print(f"phase 13: FVM {FVM_N}^2 {tag}, classic RK4 + projection, Kolmogorov "
+              f"forcing and drag 0.1, dt {vdt:.6f}, {FVM_FRAMES} frames of {FVM_INNER} steps "
+              f"in {wall:.2f} s: {fvm_rows[tag]['ms_per_step']:.3f} ms a step on {card}; "
+              f"final max |div| {fdiv:.3e}", flush=True)
+        _require(finite and v[0].data.device == dev,
+                 f"finite FVM rollout on the card ({tag})")
+        _require(fdiv < (1e-12 if dtype == torch.float64 else 1e-4),
+                 f"divergence-free FVM velocity ({tag})")
+        fvm_rows[tag]["profile"] = profile_steps(f"FVM step {tag}", lambda: eqn(v, vdt), 5)
+    # card against CPU over 20 steps in fp64
+    ends = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        v, eqn = fvm_setup(torch.float64, d)
+        for _ in range(FVM_INNER):
+            v = eqn(v, vdt)
+        ends[where] = [u.data.cpu() for u in v]
+    fvm_err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(ends["card"], ends["cpu"]))
+    fvm_rows["card_vs_cpu_rel"] = fvm_err
+    print(f"phase 13: FVM card vs CPU after {FVM_INNER} steps in fp64: max err / max "
+          f"{fvm_err:.3e} (tol {FVM_DEVICE_TOL})", flush=True)
+    _require(fvm_err < FVM_DEVICE_TOL, "FVM card vs CPU")
 
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
                "spectral_advect": ("spectral_step", "advect"),
@@ -1314,14 +1653,18 @@ def main() -> int:
     # the DFT pair at the recipe's shape: its launches on main path 2 (none
     # where the recipe's SpectralConvS takes torch.fft) and on main path 3,
     # which runs the same two kernels at the sweep's shape
-    # the spectral-step kernels run on main paths 1 (mcwilliams) and 5 (kolmogorov)
-    launches = {**{("spectral_step", k): v + kol_launches[k]
+    # the spectral-step kernels run on main paths 1 (mcwilliams), 5 (kolmogorov)
+    # and 8 (the demo's 128^2 dataset); the demo's DFT pair runs at m=12, so
+    # its launches join the sweep-shape rows; path 7 (fp64) launches none
+    launches = {**{("spectral_step", k): v + kol_launches[k] + demo_launches[k]
                    for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v + sweep_launches[k] for k, v in
                    train_launches.items() if k in sc.LAUNCHES},
-                ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"],
-                ("spectral_conv", "inverse_fused_sweep"): sweep_launches["inverse_fused"],
-                ("ffn", "ffn"): train_launches["ffn"],
+                ("spectral_conv", "modes_fused_sweep"):
+                    sweep_launches["modes_fused"] + demo_launches["modes_fused"],
+                ("spectral_conv", "inverse_fused_sweep"):
+                    sweep_launches["inverse_fused"] + demo_launches["inverse_fused"],
+                ("ffn", "ffn"): train_launches["ffn"] + demo_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
                 ("adam", "adam"): sweep_launches["adam"]}
@@ -1336,7 +1679,13 @@ def main() -> int:
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
          **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key]}}
             if name in ("dft2d_modes", "dft2d_inverse") else {}),
-         **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key]}}
+         **({"launches_by_path": {"3": sweep_launches[key[:-len("_sweep")]],
+                                  "8": demo_launches[key[:-len("_sweep")]]}}
+            if name in ("dft2d_modes_sweep", "dft2d_inverse_sweep") else {}),
+         **({"launches_by_path": {"2": train_launches["ffn"], "8": demo_launches["ffn"]}}
+            if name == "pointwise_ffn" else {}),
+         **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key],
+                                  "8": demo_launches[key]}}
             if src == "spectral_step" else {})}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
@@ -1356,6 +1705,7 @@ def main() -> int:
                                     "rollout_rel_l2_vs_plain": kol_err},
                      "fno": {**fno_rows, "rollout_sample_steps_per_s": fno_rollout,
                              "full_dataset_hours": full_h}},
+        "finetune_main_path_7": ft_row, "demo_main_path_8": demo_row, "fvm_phase_13": fvm_rows,
         "card": card}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

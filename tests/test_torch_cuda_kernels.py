@@ -144,9 +144,10 @@ def test_inverse_route_matches_plain(dev, n, m, b, planes, fused):
     assert _rel_err(sc.inverse(h, 1.0, c), sc._inverse_plain(h, 1.0, c)) < 1e-5
 
 
-# 256^2 (32 rows a K2 block), 512^2 (16) and 1024^2 (8), both layouts
+# 128^2 at the fine-tune demo's b=4, 256^2 (32 rows a K2 block), 512^2 (16)
+# and 1024^2 (8), both layouts
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
-@pytest.mark.parametrize("n,b", [(32, 3), (256, 2), (512, 1), (1024, 1)])
+@pytest.mark.parametrize("n,b", [(32, 3), (128, 4), (256, 2), (512, 1), (1024, 1)])
 def test_spectral_step_kernels_match_plain(dev, layout, n, b):
     """K1, K2 and K3 of the RK4-CN stage vs their plain versions, one launch
     each, at every K2 instance."""

@@ -19,6 +19,7 @@ The flax names of each module map to the port's attributes:
   ``Dense_1`` → ``linear`` for a linear lifting);
 - ``PointwiseFFN``: ``Dense_0``/``Dense_1`` → ``dense_0``/``dense_1``;
 - ``OutConv``: ``SpectralConvT_0`` → ``conv``;
+- ``OutConvFT`` (the fine-tune's): ``OutConv_0`` → ``out_conv``;
 - ``FNO3d``: ``Dense_0`` (the lifting) → ``lift``, ``SpectralConv3d_{i}`` →
   ``convs.{i}``, ``MLP3d_{i}`` → ``mlps.{i}``, ``Dense_{i+1}`` (the 1×1 skips)
   → ``skips.{i}``, ``MLP3d_{L}`` (the output head) → ``head``;
@@ -128,6 +129,10 @@ def _out_conv(prefix: str, tree) -> Dict[tuple, _Leaf]:
                  _spectral(prefix + "conv.", tree.get("SpectralConvT_0", {})))
 
 
+def _out_conv_ft(prefix: str, tree) -> Dict[tuple, _Leaf]:
+    return _nest("OutConv_0", "", _out_conv(prefix + "out_conv.", tree.get("OutConv_0", {})))
+
+
 def _sfno(prefix: str, tree) -> Dict[tuple, _Leaf]:
     layers = sum(1 for k in tree if re.fullmatch(r"SpectralConvS_\d+", str(k)))
     out = {}
@@ -162,6 +167,7 @@ _MODULES: Dict[str, Callable] = {
     "MLP3d": _ffn,
     "LiftingOperator": _lifting,
     "OutConv": _out_conv,
+    "OutConvFT": _out_conv_ft,
     "SpaceTimePositionalEncoding": _pe,
     "SpectralConv": _spectral,
     "PointwiseFFN": _ffn,
@@ -193,7 +199,7 @@ def state_dict_from_flax(module: str, params) -> Dict[str, torch.Tensor]:
     """A flax parameter tree of ``module`` as the port's ``state_dict``.
 
     ``module`` names the flax class (``"SFNO"``, ``"FNO3d"``,
-    ``"LiftingOperator"``, ``"OutConv"``, ``"SpectralConv"`` for
+    ``"LiftingOperator"``, ``"OutConv"``, ``"OutConvFT"``, ``"SpectralConv"`` for
     SpectralConvS/T/3d, ``"PointwiseFFN"``, ``"MLP3d"``, ``"LayerNormnd"``,
     ``"Dense"``, ``"SpaceTimePositionalEncoding"``).
     """
@@ -244,7 +250,7 @@ def _skeleton(module: str, sd) -> dict:
     if module == "FNO3d":
         layers = len({k.split(".")[1] for k in sd if k.startswith("convs.")})
         return {f"SpectralConv3d_{i}": {} for i in range(layers)}
-    if module not in ("SFNO", "LiftingOperator", "OutConv"):
+    if module not in ("SFNO", "LiftingOperator", "OutConv", "OutConvFT"):
         return {}
     pre = "lifting." if module == "SFNO" else ""
     lift = {}
@@ -256,6 +262,8 @@ def _skeleton(module: str, sd) -> dict:
         return lift
     if module == "OutConv":
         return out
+    if module == "OutConvFT":
+        return {"OutConv_0": out}
     layers = len({k.split(".")[1] for k in sd if k.startswith("convs.")})
     skel = {"LiftingOperator_0": lift, "OutConv_0": out}
     skel.update({f"SpectralConvS_{i}": {} for i in range(layers)})

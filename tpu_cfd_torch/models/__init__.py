@@ -4,6 +4,7 @@ from tpu_cfd_torch.models.base import (
     LayerNormnd,
     PointwiseFFN,
     SpectralConv,
+    forward_with_latents,
     get_activation,
     init_like_flax,
 )

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -351,6 +351,36 @@ class SpectralConv(nn.Module):
         v_hat = torch.fft.rfftn(v, dim=axes, norm=self.norm)
         v_hat = self.spectral_conv(v_hat, *fft_mesh_size)
         return torch.fft.irfftn(v_hat, s=out_mesh_size, dim=axes, norm=self.norm)
+
+
+def forward_with_latents(model: nn.Module, *args, **kwargs
+                         ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """``model(*args, **kwargs)`` and its latents ``{name: tensor}``.
+
+    The model names its tap points in ``latent_taps()``: ``{name: (module,
+    where)}``, the input (``"input"``) or the output (``"output"``) of a
+    submodule. A forward (pre-)hook on each records the first tensor it sees
+    in this call, so a checkpointed block that runs again records once; the
+    hooks are removed on return. The counterpart of the JAX package's
+    ``apply_with_latents`` (its ``sow``n intermediates), as the reference
+    taps with ``add_latent_hook``.
+    """
+    latents: Dict[str, Tensor] = {}
+
+    def record(key: str, module, args, out=None) -> None:  # returns None: no change
+        latents.setdefault(key, args[0] if out is None else out)
+
+    handles = []
+    for name, (module, where) in model.latent_taps().items():
+        hook = functools.partial(record, name)
+        handles.append(module.register_forward_pre_hook(hook) if where == "input"
+                       else module.register_forward_hook(hook))
+    try:
+        out = model(*args, **kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+    return out, latents
 
 
 @torch.no_grad()

@@ -416,6 +416,16 @@ class SFNO(nn.Module):
             temporal_padding=temporal_padding, norm=fft_norm, diam=diam,
             mxu_precision=mxu_precision, impl=impl)
 
+    def latent_taps(self) -> dict:
+        """The latents ``models.base.forward_with_latents`` records: the
+        lifting's output, ``spectral_{i}`` the output of backbone layer i (the
+        input of the next layer, or of the reduction), and ``r`` the reduced
+        latent that feeds ``OutConv``, the fine-tune's input."""
+        after = list(self.convs)[1:] + [self.reduce] if len(self.convs) else []
+        return {"lifting": (self.lifting, "output"),
+                **{f"spectral_{i}": (m, "input") for i, m in enumerate(after)},
+                "r": (self.out_conv, "input")}
+
     def forward(self, v: Tensor, out_steps: Optional[int] = None) -> Tensor:
         if out_steps is None:
             out_steps = self.output_steps if self.output_steps is not None else v.shape[-1]

@@ -1,8 +1,11 @@
-"""Trajectory rollout and the spectral residual (PyTorch).
+"""Trajectory rollout, the CN-IMEX step and the spectral residual (PyTorch).
 
 Counterpart of ``tpu_cfd/solvers/trajectories.py``. Records stay in the
 frequency domain with time on axis -3. The target is one device, so the
-chunked recorder has no device mesh.
+chunked recorder has no device mesh. ``imex_crank_nicolson_step`` and
+``update_residual`` are plain ``torch.fft`` arithmetic and differentiable:
+the fine-tuning pipeline (``train/finetune.py``) differentiates through the
+same step that ``get_trajectory_imex_crank_nicolson`` rolls out.
 """
 
 from __future__ import annotations
@@ -37,6 +40,43 @@ def backdiff(x: Tensor, order: int = 3) -> Tensor:
     return x_t.sum(-1)
 
 
+def default_rfft_mesh(n: int, diam: float = 1.0, dtype=torch.float32,
+                      device=None) -> Tuple[Tensor, Tensor]:
+    """The (kx, ky) wave numbers of an rfft2 spectrum ``(n, n//2+1)``,
+    computed in float64 as ``jnp.fft.fftfreq`` does and cast to ``dtype``."""
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    k = (((i + n // 2) % n - n // 2) / (diam / n * n)).to(dtype)
+    kx, ky = torch.meshgrid(k, k, indexing="ij")
+    k_max = n // 2
+    return kx[..., : k_max + 1], ky[..., : k_max + 1]
+
+
+def spectral_laplacian_guarded(rfftmesh: Tuple[Tensor, Tensor]) -> Tensor:
+    """-4π²|k|², with the mean mode set to 1 so that it divides safely."""
+    kx, ky = rfftmesh
+    lap = -4 * (math.pi ** 2) * (kx ** 2 + ky ** 2)
+    lap[..., 0, 0] = 1.0
+    return lap
+
+
+def default_dealias_filter(kx: Tensor, ky: Tensor, n: int) -> Tensor:
+    """Boolean 2/3-rule mask of the CN kernels."""
+    k_max = n // 2
+    return (ky.abs() <= (2.0 / 3.0) * k_max) & (kx.abs() <= (2.0 / 3.0) * k_max)
+
+
+def _convection(w_h: Tensor, psi_h: Tensor, kx: Tensor, ky: Tensor, n: int) -> Tensor:
+    """(v·∇w)^ from ŵ and ψ̂, products taken on the physical grid."""
+    specs = torch.stack([
+        2 * math.pi * ky * 1j * psi_h,
+        -2.0 * math.pi * kx * 1j * psi_h,
+        2.0 * math.pi * kx * 1j * w_h,
+        2.0 * math.pi * ky * 1j * w_h,
+    ])
+    u, v, w_x, w_y = torch.fft.irfft2(specs, s=(n, n)).unbind(0)
+    return torch.fft.rfft2(u * w_x + v * w_y)
+
+
 def update_residual(
     w_h: Tensor,
     w_h_t: Tensor,
@@ -51,20 +91,55 @@ def update_residual(
 
     Shapes: (..., n, n//2+1); differentiable.
     """
-    n = w_h.shape[-2]
     kx, ky = rfftmesh
-    psi_h = -w_h / laplacian
-    specs = torch.stack([
-        2 * math.pi * ky * 1j * psi_h,
-        -2.0 * math.pi * kx * 1j * psi_h,
-        2.0 * math.pi * kx * 1j * w_h,
-        2.0 * math.pi * ky * 1j * w_h,
-    ])
-    u, v, w_x, w_y = torch.fft.irfft2(specs, s=(n, n)).unbind(0)
-    convection_h = torch.fft.rfft2(u * w_x + v * w_y)
+    convection_h = _convection(w_h, -w_h / laplacian, kx, ky, w_h.shape[-2])
     if dealias and dealias_filter is not None:
         convection_h = dealias_filter * convection_h
     return w_h_t + convection_h - visc * laplacian * w_h - f_h
+
+
+def imex_crank_nicolson_step(
+    w: Tensor,
+    f: Tensor,
+    visc: float,
+    delta_t: float,
+    diam: float = 1.0,
+    rfftmesh: Optional[Tuple[Tensor, Tensor]] = None,
+    laplacian: Optional[Tensor] = None,
+    dealias_filter: Optional[Tensor] = None,
+    dealias: bool = False,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One Crank-Nicolson IMEX update in rfft2 space.
+
+    Inputs and outputs in the frequency domain, shapes (..., n, n//2+1).
+    Returns (w_next, dw/dt, w, ψ̂, residual); differentiable.
+    """
+    size = w.shape
+    if (size[-1] - 1) * 2 != size[-2]:
+        raise ValueError(f"input must be an rfft2 spectrum, got shape {tuple(size)}")
+    n = size[-2]
+    if rfftmesh is None:
+        rfftmesh = default_rfft_mesh(n, diam, dtype=w.real.dtype, device=w.device)
+    kx, ky = rfftmesh
+    if laplacian is None:
+        laplacian = spectral_laplacian_guarded((kx, ky))
+    if dealias_filter is None:
+        dealias_filter = default_dealias_filter(kx, ky, n)
+
+    psi_h = -w / laplacian
+    convection_h = _convection(w, psi_h, kx, ky, n)
+    if dealias:
+        convection_h = dealias_filter * convection_h
+
+    w_next = (
+        -delta_t * convection_h
+        + delta_t * f
+        + (1.0 + 0.5 * delta_t * visc * laplacian) * w
+    ) / (1.0 - 0.5 * delta_t * visc * laplacian)
+
+    dwdt = (w_next - w) / delta_t
+    res_h = dwdt + convection_h - visc * laplacian * w - f
+    return w_next, dwdt, w, psi_h, res_h
 
 
 _ALL_TRAJECTORY_FIELDS = ("vorticity", "stream", "vort_t", "residual")
@@ -158,3 +233,48 @@ def get_trajectory_imex_chunked(
         remaining -= n_recs
     out = {k: np.concatenate([c[k] for c in chunks], axis=-3) for k in chunks[0]}
     return out, w
+
+
+def get_trajectory_imex_crank_nicolson(
+    w0: Tensor,
+    f: Tensor,
+    visc: float = 1e-3,
+    T: float = 10.0,
+    delta_t: float = 1e-3,
+    record_steps: int = 100,
+    diam: float = 1.0,
+    dealias: bool = True,
+    subsample: int = 1,
+) -> Dict[str, Tensor]:
+    """Self-contained CN-IMEX rollout (the legacy path).
+
+    ``w0``/``f`` are physical-space fields (..., n, n); outputs are
+    physical-space records of vorticity, stream function, ∂w/∂t and the
+    residual, with time on axis -3. Each record lands ``T/delta_t //
+    record_steps`` steps after the one before.
+    """
+    n = w0.shape[-1]
+    total_steps = math.ceil(T / delta_t)
+    record_every = max(1, total_steps // record_steps)
+
+    w_h = torch.fft.rfft2(w0)
+    f_h = torch.fft.rfft2(f.to(w0.dtype))
+    rfftmesh = default_rfft_mesh(n, diam, dtype=w0.dtype, device=w0.device)
+    laplacian = spectral_laplacian_guarded(rfftmesh)
+    dealias_filter = default_dealias_filter(*rfftmesh, n)
+
+    def step(w):
+        return imex_crank_nicolson_step(
+            w, f_h, visc=visc, delta_t=delta_t, rfftmesh=rfftmesh,
+            laplacian=laplacian, dealias_filter=dealias_filter, dealias=dealias)
+
+    sl = (Ellipsis, slice(None, None, subsample), slice(None, None, subsample))
+    recs = []
+    for _ in range(record_steps):
+        for _ in range(record_every - 1):
+            w_h = step(w_h)[0]
+        w_h, dwdt, _, psi_h, res_h = step(w_h)
+        recs.append([torch.fft.irfft2(z, s=(n, n))[sl]
+                     for z in (w_h, psi_h, dwdt, res_h)])
+    out = (torch.stack(r, dim=-3) for r in zip(*recs))
+    return dict(zip(["vorticity", "stream", "vort_t", "residual"], out))

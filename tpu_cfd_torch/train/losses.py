@@ -1,9 +1,11 @@
-"""Functional-norm losses: L2/Lp and the fractional Sobolev norm.
+"""Functional-norm losses: L2/Lp, the fractional Sobolev norm, the Bochner
+norm and the space-time NSE residual.
 
 Counterpart of ``tpu_cfd/train/losses.py``. The losses are plain callables;
 the Sobolev weights are host float64 constants built once and cast to the
-input's real dtype and device at call time. ``BochnerNorm`` and
-``ResidualLoss`` wait for the fine-tuning slice (ROADMAP.md Queue A item 4).
+input's real dtype and device at call time. ``ResidualLoss`` keeps its
+wave-number meshes as float32 host arrays, as the JAX package does, so an
+fp64 input sees the same fp32-rounded meshes there and here.
 """
 
 from __future__ import annotations
@@ -199,3 +201,92 @@ class SobolevLoss:
         loss = loss / math.sqrt(nt) if self.time_average else loss
         loss = loss.mean(0) if self.reduction else loss.sum(0)
         return loss / n if self.mesh_weighted else loss
+
+
+class BochnerNorm(SobolevLoss):
+    """(∫_T ‖u‖_p² dt)^{1/2} of ``u`` ``(b, n, n, T)`` (time first unless
+    ``time_last``); with ``dt`` None the time integral is a mean."""
+
+    def __init__(self, n_grid: int = 256, dt: Optional[float] = None, p: int = 2,
+                 relative: bool = True, mesh_weighted: bool = True,
+                 reduction: bool = True, time_average: bool = False,
+                 time_last: bool = False):
+        super().__init__(n_grid=n_grid, relative=relative, inp_time_last=time_last,
+                         reduction=reduction, mesh_weighted=mesh_weighted,
+                         time_average=time_average)
+        self.dt = dt
+        self.p = p
+        self.time_last = time_last
+
+    def __call__(self, u: Tensor) -> Tensor:
+        n = self.n_grid
+        if u.ndim == 3:
+            u = u[None]
+        if not self.time_last:
+            u = torch.movedim(u, 1, -1)
+        norm_space = (u.abs() ** self.p).sum(dim=(1, 2)) ** (1 / self.p)
+        norm_space = norm_space / n if self.mesh_weighted else norm_space
+        if self.dt is not None:
+            norm = torch.sqrt((norm_space ** 2).sum(dim=-1) * self.dt)
+        else:
+            norm = torch.sqrt((norm_space ** 2).mean(dim=-1))
+        return norm.mean() if self.reduction else norm.sum()
+
+
+class ResidualLoss:
+    """The NSE residual of a trajectory ``(b, n, n, T)`` in the space-time
+    Fourier domain, the time derivative taken spectrally (2πi k_t): how well
+    a predicted trajectory satisfies the vorticity equation."""
+
+    def __init__(self, alpha: float = 1e-1, visc: float = 1e-3, n_grid: int = 64,
+                 n_t: int = 40, delta_t: float = 1e-2, norm: str = "ortho"):
+        self.alpha = alpha
+        self.visc = visc
+        self.n_grid = n_grid
+        self.n_t = n_t
+        self.delta_t = delta_t
+        self.norm = norm
+        n = n_grid
+        kx = np.fft.fftfreq(n, d=1 / n)
+        ky = np.fft.fftfreq(n, d=1 / n)
+        kt = np.fft.fftfreq(n_t, d=delta_t)
+        kx, ky, kt = np.meshgrid(kx, ky, kt, indexing="ij")
+        lap = -4 * np.pi ** 2 * (kx ** 2 + ky ** 2)
+        lap[0, 0, :] = 1.0
+        self.kx = kx.astype(np.float32)
+        self.ky = ky.astype(np.float32)
+        self.kt = kt.astype(np.float32)
+        self.lap = lap.astype(np.float32)
+
+    def __call__(self, w: Tensor, psi: Optional[Tensor] = None,
+                 f: Optional[Tensor] = None) -> Tensor:
+        n = w.shape[1]
+        dims, norm = (1, 2, 3), self.norm
+
+        def fftn(z):
+            return torch.fft.fftn(z, dim=dims, norm=norm)
+
+        def ifftn(z):
+            return torch.fft.ifftn(z, dim=dims, norm=norm)
+
+        def const(a):
+            # float32 host products, promoted to the input's precision by the
+            # operation that uses them, as numpy constants are under JAX
+            return torch.from_numpy(a).to(w.device)
+
+        # the wave numbers times 2πi, each rounded to float32 on the host
+        ikx, iky, ikt = (const(2 * np.pi * k * 1j) for k in (self.kx, self.ky, self.kt))
+        mikx = const(-2.0 * np.pi * self.kx * 1j)
+        lap = const(self.lap)
+
+        w_h = fftn(w)
+        w_h_t = fftn(ifftn(ikt * w_h))
+        psi_h = fftn(psi) if psi is not None else -w_h / lap
+        q = ifftn(iky * psi_h)
+        v = ifftn(mikx * psi_h)
+        w_x = ifftn(ikx * w_h)
+        w_y = ifftn(iky * w_h)
+        convection = fftn(q * w_x + v * w_y)
+        ff = torch.zeros_like(w_h) if f is None else fftn(f)
+        residual = (w_h_t + convection - self.visc * (lap * w_h) - ff).real
+        return torch.linalg.vector_norm(residual, dim=(-1, -2)).mean() / n

@@ -84,7 +84,8 @@ def build_model(args) -> SFNO:
 
 
 def main(args=None) -> dict:
-    """Runs the CLI; returns ``{"model", "n_params", "history", "test"}``."""
+    """Runs the CLI; returns ``{"model", "n_params", "history", "test",
+    "checkpoint"}`` (the best model's path without its ``.pt`` suffix)."""
     args = get_parser().parse_args(args)
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
@@ -183,7 +184,8 @@ def main(args=None) -> dict:
             logger.info(f"No test data at {test_path}; skipping eval phase.")
         else:
             test_l2 = _eval_phase(args, model, path_model, test_path, device, logger)
-    return {"model": model, "n_params": n_params, "history": history, "test": test_l2}
+    return {"model": model, "n_params": n_params, "history": history, "test": test_l2,
+            "checkpoint": path_model}
 
 
 def _eval_phase(args, model, path_model, test_path, device, logger) -> float:
