@@ -103,14 +103,39 @@ printing no result, when either is missing or any phase fails:
    launched exactly as counted (the RK4-CN stage ``steps × 5`` where the
    dataset took the fused route, the FFN once a layer a forward pass, the
    DFT pair where ``fused_pair_wins`` names it);
-13. steps the FVM solver (``solvers/fvm.py``) at the constants of
-   ``examples/ex1_kolmogorov_fvm.py``: 128², ``filtered_velocity_field``
-   with maximum velocity 3, peak wavenumber 3 and 3 projections,
-   ``stable_time_step`` at Courant 0.5, Kolmogorov forcing (wave 3) and drag
-   0.1, classic RK4 with projection, 10 frames of 20 steps, in fp64 and in
-   fp32; checks that everything is finite and divergence-free (1e-12 in
-   fp64, 1e-4 in fp32), holds the card against the CPU after 20 fp64 steps
-   (``FVM_DEVICE_TOL``), and prints the ms a step. No kernel runs here.
+13. runs the example ``tpu_cfd_torch.examples.ex1_kolmogorov_fvm`` (the FVM
+   solver, ``solvers/fvm.py``, at the JAX example's constants: 128²,
+   ``filtered_velocity_field`` with maximum velocity 3, peak wavenumber 3
+   and 3 projections, ``stable_time_step`` at Courant 0.5, Kolmogorov
+   forcing (wave 3) and drag 0.1, classic RK4 with projection, 10 frames of
+   20 steps) in fp64 and with ``--f32``; checks that everything is finite
+   and divergence-free (1e-12 in fp64, 1e-4 in fp32), holds the card
+   against the CPU after 20 fp64 steps from the example's IC
+   (``FVM_DEVICE_TOL``), and prints the ms a step. No kernel runs here;
+14. drives main path 9, ``--data-parallel`` in both CLIs: ``generate
+   mcwilliams`` at 256² → 64², 64 samples, b=32, 100 + 100 steps (100
+   records), and ``train`` with phase 6's arguments, once in this process
+   at world 1 on NCCL, then each as a user starts it, under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` and plainly (one
+   worker a visible card by ``torch.multiprocessing.spawn``); each dataset
+   must equal the run without the flag within the JAX package's
+   tolerances, and each training run's parameters phase 6's within rtol
+   2e-4, atol 2e-6 (the last in this process, the best checkpoint of the
+   others); K1/K2/K3 ``steps × 5`` a batch and the FFN 4 a step, by count;
+   prints sample-steps/s and train ms/step beside the runs without the
+   flag; the process group is destroyed after;
+15. drives main path 10, the examples: ``ex1_kolmogorov_simulation`` at its
+   defaults (256², 3,000 steps on ``torch.fft``: no kernel), prints the
+   final enstrophy and the spectrum's peak; ``check_sfno_shapes`` as it is
+   (shapes, latents, ms a forward at 128²); ``ex2_sfno_5ep_spectra`` on 64
+   train and 64 held-out samples of phase 4's dataset (its ``gap``); the
+   DFT pair's and the FFN's launches exact by count, each kernel instance
+   held against its plain version at the examples' shapes; and ``train
+   --demo-plots 2`` (its eval at 256² in fp64 on phase 12's test set),
+   whose figures exist where matplotlib is installed;
+16. the utilities on the card: ``profile_to`` around 10 fused rollout
+   steps writes a trace holding the 50 ``spectral_advect`` launches;
+   ``timer`` and ``device_memory_summary`` print.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -688,6 +713,10 @@ def main() -> int:
     wall = time.perf_counter() - t0
     train_launches = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
     sfno_ckpt = run["checkpoint"]  # phase 12 fine-tunes this model
+    # phase 14 holds the --data-parallel runs to these: the last parameters
+    # and the best checkpoint (later runs write to the same path)
+    p6_final = {k: v.detach().cpu().clone() for k, v in run["model"].state_dict().items()}
+    p6_best = torch.load(sfno_ckpt + ".pt", map_location="cpu", weights_only=True)
     hist = run["history"]
     print(f"main path 2: train.main at the recipe, {run['n_params']} parameters, "
           f"2 epochs x 2 steps + 2 val batches in {wall:.2f} s, launches "
@@ -1553,63 +1582,39 @@ def main() -> int:
             ffn_ops._ffn_plain(x, *w, demo_ffn.activation))
     demo_row["kernel_vs_plain"] = demo_err
     del demo_ns, dnoise, dw_hat, dc, got, want_r, v, gg, x, w
-    tmp_ctx.cleanup()
 
-    # -- 13. the FVM solver at the Kolmogorov FVM example's constants --------
-    from tpu_cfd_torch.solvers import fvm
-    from tpu_cfd_torch.solvers.equations import stable_time_step
-
-    vgrid = grids.Grid((FVM_N, FVM_N), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
-    vdt = stable_time_step(dx=min(vgrid.step), max_velocity=3.0, max_courant_number=0.5,
-                           viscosity=1e-3)
-    vnoise = torch.randn((2, FVM_N, FVM_N), dtype=torch.float64,
-                         generator=torch.Generator().manual_seed(42))
-
-    def fvm_setup(dtype, device):
-        """The example's IC and equation: max velocity 3, peak wavenumber 3,
-        3 projections; Kolmogorov forcing (wave 3) at the velocity's offsets,
-        drag 0.1, classic RK4 with a projection after each stage."""
-        v = ic.filtered_velocity_field(vgrid, 3.0, 3, iterations=3, dtype=dtype,
-                                       noise=vnoise, device=device)
-        eqn = fvm.NavierStokes2DFVMProjection(
-            viscosity=1e-3, grid=vgrid, density=1.0, drag=0.1,
-            forcing=forcings.KolmogorovForcing(grid=vgrid, diam=2 * np.pi, wave_number=3,
-                                               offsets=(v[0].offset, v[1].offset)),
-            solver=fvm.RKStepper.from_method("classic_rk4"), dtype=dtype)
-        return v, eqn
+    # -- 13. the FVM solver through the Kolmogorov FVM example --------------
+    from tpu_cfd_torch.examples import ex1_kolmogorov_fvm as ex_fvm
 
     fvm_rows = {}
     for dtype in (torch.float64, torch.float32):
-        v, eqn = fvm_setup(dtype, dev)
-        eqn(v, vdt)  # the forcing, the FFT plans and the solver's constants
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames = []
-        for _ in range(FVM_FRAMES):
-            for _ in range(FVM_INNER):
-                v = eqn(v, vdt)
-            frames.append(fdm.curl_2d(v).data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        fdiv = float(fdm.divergence(v).data.abs().max())
-        finite = bool(torch.isfinite(torch.stack(frames)).all()) and all(
-            bool(torch.isfinite(u.data).all()) for u in v)
         tag = str(dtype).split(".")[-1]
-        fvm_rows[tag] = {"ms_per_step": 1e3 * wall / (FVM_FRAMES * FVM_INNER),
-                         "max_div": fdiv, "finite": finite, "dt": vdt}
-        print(f"phase 13: FVM {FVM_N}^2 {tag}, classic RK4 + projection, Kolmogorov "
-              f"forcing and drag 0.1, dt {vdt:.6f}, {FVM_FRAMES} frames of {FVM_INNER} steps "
-              f"in {wall:.2f} s: {fvm_rows[tag]['ms_per_step']:.3f} ms a step on {card}; "
-              f"final max |div| {fdiv:.3e}", flush=True)
-        _require(finite and v[0].data.device == dev,
+        t0 = time.perf_counter()
+        fr = ex_fvm.main(["--n", str(FVM_N), "--frames", str(FVM_FRAMES),
+                          "--inner-steps", str(FVM_INNER),
+                          "--out", os.path.join(tmp, f"fvm_{tag}.png"),
+                          *(["--f32"] if dtype == torch.float32 else [])])
+        wall = time.perf_counter() - t0
+        finite = bool(np.isfinite(fr["frames"]).all()) and all(
+            bool(torch.isfinite(u.data).all()) for u in fr["velocity"])
+        fvm_rows[tag] = {"ms_per_step": fr["ms_per_step"], "max_div": fr["max_div"],
+                         "finite": finite, "dt": fr["dt"], "seconds": wall}
+        print(f"phase 13: ex1_kolmogorov_fvm {FVM_N}^2 {tag}, classic RK4 + projection, "
+              f"Kolmogorov forcing and drag 0.1, dt {fr['dt']:.6f}, {FVM_FRAMES} frames "
+              f"of {FVM_INNER} steps: {fr['ms_per_step']:.3f} ms a step on {card} "
+              f"({wall:.2f} s with the IC); final max |div| {fr['max_div']:.3e}",
+              flush=True)
+        _require(finite and fr["velocity"][0].data.device == dev,
                  f"finite FVM rollout on the card ({tag})")
-        _require(fdiv < (1e-12 if dtype == torch.float64 else 1e-4),
+        _require(fr["max_div"] < (1e-12 if dtype == torch.float64 else 1e-4),
                  f"divergence-free FVM velocity ({tag})")
+        v, eqn, vdt = ex_fvm.build(FVM_N, dtype, dev)
+        eqn(v, vdt)  # the forcing, the FFT plans and the solver's constants
         fvm_rows[tag]["profile"] = profile_steps(f"FVM step {tag}", lambda: eqn(v, vdt), 5)
-    # card against CPU over 20 steps in fp64
+    # card against CPU over 20 steps in fp64, from the example's IC
     ends = {}
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        v, eqn = fvm_setup(torch.float64, d)
+        v, eqn, vdt = ex_fvm.build(FVM_N, torch.float64, d)
         for _ in range(FVM_INNER):
             v = eqn(v, vdt)
         ends[where] = [u.data.cpu() for u in v]
@@ -1619,6 +1624,328 @@ def main() -> int:
     print(f"phase 13: FVM card vs CPU after {FVM_INNER} steps in fp64: max err / max "
           f"{fvm_err:.3e} (tol {FVM_DEVICE_TOL})", flush=True)
     _require(fvm_err < FVM_DEVICE_TOL, "FVM card vs CPU")
+
+    # -- 14. main path 9: --data-parallel in both CLIs, world 1 on NCCL -------
+    import glob
+
+    import torch.distributed as dist
+
+    from tpu_cfd_torch import parallel
+    from tpu_cfd_torch.parallel.launch import _free_port
+
+    def same_dataset(p1, p2) -> dict:
+        """The JAX package's tolerances for --data-parallel against one
+        process (tests/test_parallel.py:215-239); the largest difference of
+        each field."""
+        diffs = {}
+        with np.load(p1) as a, np.load(p2) as b:
+            _require(set(a.files) == set(b.files), f"fields of {p2}")
+            scale_vt = np.abs(a["vort_t"]).max() if a["vort_t"].size else 0.0
+            for k in a.files:
+                x, y = a[k], b[k]
+                _require(x.shape == y.shape, f"{k} shape {y.shape} against {x.shape}")
+                if not x.size:  # a field the run did not record
+                    continue
+                d = float(np.abs(x.astype(np.float64) - y).max())
+                tol = (0.0 if x.dtype.kind in "iu" else 1e-4 * scale_vt
+                       if k in ("vort_t", "residual") else 1e-5 * np.abs(x).max())
+                _require(d <= tol, f"{k} differs under --data-parallel: {d} > {tol}")
+                diffs[k] = d
+        return diffs
+
+    def same_params(got, want, what) -> float:
+        """rtol 2e-4, atol 2e-6 (tests/test_parallel.py:184); the largest
+        absolute difference."""
+        worst = 0.0
+        for k, w_ in want.items():
+            g_ = got[k].detach().cpu()
+            _require(bool(torch.allclose(g_, w_, rtol=2e-4, atol=2e-6)),
+                     f"{what}: parameter {k} differs from phase 6's")
+            worst = max(worst, float((g_ - w_).abs().max()))
+        return worst
+
+    def run_cli(tag, args, env_extra=None) -> float:
+        """A CLI as a user starts it, in a process of its own; its wall time."""
+        env = {**os.environ, **(env_extra or {})}
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, *args], env=env, capture_output=True,
+                              text=True, timeout=420)
+        wall = time.perf_counter() - t0
+        if done.returncode != 0:
+            print(done.stdout[-3000:], done.stderr[-3000:], sep="\n", file=sys.stderr)
+        _require(done.returncode == 0, f"{tag} exited with {done.returncode}")
+        return wall
+
+    DP_SAMPLES, DP_BATCH = 64, 32
+    dp_gen = ["--grid-size", str(N), "--subsample", "4", "--batch-size", str(DP_BATCH),
+              "--num-samples", str(DP_SAMPLES), "--time", "0.2", "--time-warmup", "0.1",
+              "--dt", str(DT), "--num-steps", "100"]
+    # per batch: 100 warmup steps, then 100 records one step apart
+    dp_batch_steps = 100 + 1 + 99
+    dp_rows = {}
+    ss.reset_launch_counts()
+    t0 = time.perf_counter()
+    dp_base = generate.main_mcwilliams(dp_gen + ["--filepath", os.path.join(tmp, "dp_base")])
+    torch.cuda.synchronize()
+    dp_rows["generate_plain_s"] = time.perf_counter() - t0
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        ss.reset_launch_counts()
+        t0 = time.perf_counter()
+        dp_path = generate.main_mcwilliams(
+            dp_gen + ["--filepath", os.path.join(tmp, "dp_nccl"), "--data-parallel"])
+        torch.cuda.synchronize()
+        dp_rows["generate_dp_s"] = time.perf_counter() - t0
+        dp_gen_launches = dict(ss.LAUNCHES)
+        # what gathering a batch's records to rank 0 costs: gather_object
+        # pickles them on the host, the records of 32 samples here
+        with np.load(dp_path) as z:
+            recs = {"vorticity": z["vorticity"][:DP_BATCH]}
+        t0 = time.perf_counter()
+        parallel.gather_batch(recs, parallel.make_mesh())
+        dp_rows["gather_batch_s"] = time.perf_counter() - t0
+        dp_rows["gather_batch_mb"] = recs["vorticity"].nbytes / 2 ** 20
+        # the train CLI without and with the flag, one after the other, both
+        # after phase 6's first run (its cuFFT plans and allocator warm-up)
+        plain_train = train.main(targv)
+        torch.cuda.synchronize()
+        sc.reset_launch_counts()
+        ffn_ops.reset_launch_counts()
+        dp_train = train.main(targv + ["--data-parallel"])
+        torch.cuda.synchronize()
+        dp_train_launches = {**sc.LAUNCHES, **ffn_ops.LAUNCHES}
+    finally:
+        dist.destroy_process_group()
+    dp_rows["dataset_diff"] = {"in-process": same_dataset(dp_base, dp_path)}
+    want_k = (DP_SAMPLES // DP_BATCH) * dp_batch_steps * 5
+    for key in ("inverse_first", "advect", "forward_first"):
+        _require(dp_gen_launches[key] == want_k, f"--data-parallel: {key} launched "
+                 f"{dp_gen_launches[key]} times, expected {want_k}")
+    for key in per_step:
+        want = train_steps * per_step[key] + val_batches * per_eval[key]
+        _require(dp_train_launches[key] == want, f"--data-parallel train: {key} "
+                 f"launched {dp_train_launches[key]} times, expected {want}")
+    dp_rows["params_max_diff"] = {"in-process": same_params(
+        dp_train["model"].state_dict(), p6_final, "train --data-parallel in-process")}
+    sample_steps = DP_SAMPLES * dp_batch_steps
+    dp_rows["sample_steps_per_s"] = {
+        "plain": sample_steps / dp_rows["generate_plain_s"],
+        "data_parallel": sample_steps / dp_rows["generate_dp_s"]}
+    dp_rows["params_max_diff"]["in-process, without the flag"] = same_params(
+        plain_train["model"].state_dict(), p6_final, "train again without the flag")
+    # ms a train step: the second epoch's 2 steps and its validation batch
+    dp_rows["train_ms_per_step"] = {
+        "plain": 1e3 * plain_train["history"][-1]["seconds"] / 2,
+        "data_parallel": 1e3 * dp_train["history"][-1]["seconds"] / 2,
+        "phase_6_first_run": 1e3 * hist[-1]["seconds"] / 2}
+    print(f"main path 9: --data-parallel at world 1 on NCCL: generate {DP_SAMPLES} samples "
+          f"b{DP_BATCH} {N}^2->64^2 ({dp_batch_steps} steps a batch) "
+          f"{dp_rows['sample_steps_per_s']['data_parallel']:.1f} sample-steps/s against "
+          f"{dp_rows['sample_steps_per_s']['plain']:.1f} without the flag (just before), "
+          f"launches {dp_gen_launches}; gather_batch of {dp_rows['gather_batch_mb']:.1f} MB "
+          f"{dp_rows['gather_batch_s']:.3f} s; train "
+          f"{dp_rows['train_ms_per_step']['data_parallel']:.2f} ms/step against "
+          f"{dp_rows['train_ms_per_step']['plain']:.2f} without the flag (just before; "
+          f"phase 6's first run {dp_rows['train_ms_per_step']['phase_6_first_run']:.2f}; "
+          f"the second epoch, validation included), launches {dp_train_launches}; dataset "
+          f"max differences {dp_rows['dataset_diff']['in-process']}, parameters "
+          f"{dp_rows['params_max_diff']['in-process']:.3e}", flush=True)
+    # the same two CLIs as a user launches them: under torch.distributed.run,
+    # and plainly (one worker a visible card, by torch.multiprocessing.spawn)
+    launchers = {"torchrun": ["-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node", "1", "-m"],
+                 "spawn": ["-m"]}
+    dp_rows["launch_s"] = {}
+    for tag, launcher in launchers.items():
+        paths = {var: os.path.join(tmp, tag, var.lower())
+                 for var in ("MODEL_PATH", "LOG_PATH", "FIG_PATH")}
+        gen_s = run_cli(f"generate ({tag})", [
+            *launcher, "tpu_cfd_torch.data.generate", "mcwilliams", "--data-parallel",
+            *dp_gen, "--filepath", os.path.join(tmp, tag)])
+        train_s = run_cli(f"train ({tag})", [
+            *launcher, "tpu_cfd_torch.train.train", "--data-parallel", *targv], paths)
+        dp_rows["launch_s"][tag] = {"generate": gen_s, "train": train_s}
+        dp_rows["dataset_diff"][tag] = same_dataset(
+            dp_base, os.path.join(tmp, tag, os.path.basename(dp_base)))
+        best = torch.load(os.path.join(paths["MODEL_PATH"], os.path.basename(sfno_ckpt))
+                          + ".pt", map_location="cpu", weights_only=True)
+        dp_rows["params_max_diff"][tag] = same_params(best, p6_best, f"train ({tag})")
+        print(f"main path 9: {tag}: generate {gen_s:.2f} s, train {train_s:.2f} s "
+              f"(process start included); dataset max differences "
+              f"{dp_rows['dataset_diff'][tag]}; best checkpoint against phase 6's "
+              f"{dp_rows['params_max_diff'][tag]:.3e}", flush=True)
+    _require(not dist.is_initialized(), "the process group is destroyed")
+
+    # -- 15. main path 10: the examples and --demo-plots ---------------------
+    from tpu_cfd_torch.examples import (check_sfno_shapes, ex1_kolmogorov_simulation,
+                                        ex2_sfno_5ep_spectra)
+
+    def hold_instances(tag, model, forwards, modes, width, latent):
+        """The DFT pair, where ``fused_pair_wins`` sends it, and the FFN at
+        each (batch, n) of ``forwards``, against their plain versions."""
+        ffn_mod = next(m for m in model.modules() if isinstance(m, sfno_mod.PointwiseFFN))
+        d0, d1 = ffn_mod.dense_0, ffn_mod.dense_1
+        errs = {}
+        for b, n in sorted(set(forwards)):
+            planes = b * latent * width
+            if fused_pair_wins(n, n, modes, modes, planes):
+                cc = _dft2d_constants(n, n, modes, modes, str(dev), "complex64")
+                v = torch.randn(b, latent * width, n, n, device=dev, generator=gen)
+                gg = torch.randn(b, latent * width, 2 * modes, 2 * modes,
+                                 dtype=torch.complex64, device=dev, generator=gen)
+                at = f"{tag} {n}^2 m{modes} {planes} planes"
+                errs[f"dft2d_modes {n} {planes}"] = check(
+                    f"dft2d_modes {at}", sc.modes(v, cc), sc._modes_plain(v, cc))
+                errs[f"dft2d_inverse {n} {planes}"] = check(
+                    f"dft2d_inverse {at}", sc.inverse(gg, 1.0 / (n * n * latent), cc),
+                    sc._inverse_plain(gg, 1.0 / (n * n * latent), cc))
+            rows = b * n * n * latent
+            x = torch.randn(rows, d0.in_features, device=dev, generator=gen)
+            w = [torch.randn(*t.shape, device=dev, generator=gen) * a for t, a in (
+                (d0.weight, 0.3), (d0.bias, 0.1), (d1.weight, 0.15), (d1.bias, 0.1))]
+            errs[f"pointwise_ffn {rows}"] = check(
+                f"pointwise_ffn {tag} {rows} rows {d0.in_features}->{d0.out_features}->"
+                f"{d1.out_features} {ffn_mod.activation}",
+                ffn_ops.ffn_forward(x, *w, ffn_mod.activation),
+                ffn_ops._ffn_plain(x, *w, ffn_mod.activation))
+        return errs
+
+    def expected_sfno(forwards, train, layers, modes, width, latent):
+        """Launches of an SFNO's kernels over the train steps ``train`` =
+        (batch, n, steps) and the forward-only passes ``forwards`` [(batch,
+        n)]: the FFN once a layer a forward; the DFT pair, where its shape
+        takes it, once a SpectralConvS (layers - 1) a forward and once more in
+        a backward."""
+        def pair(b, n):
+            return int(fused_pair_wins(n, n, modes, modes, b * latent * width))
+
+        b, n, steps = train
+        dft = (layers - 1) * (2 * steps * pair(b, n) + sum(pair(*f) for f in forwards))
+        return {"modes": dft, "inverse": dft, "modes_fused": dft, "inverse_fused": dft,
+                "ffn": layers * (steps + len(forwards))}
+
+    ex_rows = {}
+    for mod in kernel_modules:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    kol = ex1_kolmogorov_simulation.main(["--out", os.path.join(tmp, "kolmogorov_demo")])
+    torch.cuda.synchronize()
+    ex_rows["kolmogorov_simulation"] = {
+        "seconds": time.perf_counter() - t0, "enstrophy": kol["enstrophy"],
+        "peak_k": kol["peak_k"], "launches": launch_counts(), "figures": kol["figures"]}
+    r = ex_rows["kolmogorov_simulation"]
+    print(f"main path 10: ex1_kolmogorov_simulation 256^2, 3000 steps on torch.fft in "
+          f"{r['seconds']:.2f} s: final enstrophy {r['enstrophy']:.4f}, spectrum peak "
+          f"k={r['peak_k']}, launches {r['launches']}", flush=True)
+    _require(np.isfinite(kol["trajectory"]).all() and kol["spectrum"].shape == (N // 2 - 1,)
+             and np.isfinite(kol["enstrophy"]), "finite Kolmogorov simulation")
+    _require(not any(r["launches"].values()), "no kernel under fft_impl='fft'")
+
+    for mod in kernel_modules:
+        mod.reset_launch_counts()
+    shp = check_sfno_shapes.main([])
+    torch.cuda.synchronize()
+    shp_launches = launch_counts()
+    shp_model = check_sfno_shapes.build()
+    shp_want = expected_sfno(shp["forwards"], (1, rn, 0), 4, 16, 20, 10)
+    ex_rows["check_sfno_shapes"] = {
+        "n_params": shp["n_params"], "shapes": {str(k): v for k, v in shp["shapes"].items()},
+        "latents": shp["latents"], "ms_per_forward": shp["ms_per_forward"],
+        "launches": shp_launches, "expected_launches": shp_want}
+    print(f"main path 10: check_sfno_shapes: {shp['n_params']} parameters, shapes "
+          f"{shp['shapes']}, {len(shp['latents'])} latents, {shp['ms_per_forward']:.3f} "
+          f"ms a forward at 128^2 (CUDA events) on {card}; launches {shp_launches}, "
+          f"expected {shp_want}", flush=True)
+    _require(all(v == (1, n, n, t_out) for (n, _, t_out), v in shp["shapes"].items()),
+             "check_sfno_shapes output shapes")
+    _require(len(shp["latents"]) == 5, "five named latents")
+    _require({k: shp_launches[k] for k in shp_want} == shp_want,
+             f"check_sfno_shapes launches {shp_launches}, expected {shp_want}")
+    ex_rows["check_sfno_shapes"]["kernel_vs_plain"] = hold_instances(
+        "check_sfno_shapes", shp_model, shp["forwards"], 16, 20, 10)
+
+    ex_argv = ["--data-file", data_path, "--num-samples", "64", "--num-val-samples", "64",
+               "--out", os.path.join(tmp, "spectra.png")]
+    for mod in kernel_modules:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    spec = ex2_sfno_5ep_spectra.main(ex_argv)
+    torch.cuda.synchronize()
+    spec_launches = launch_counts()
+    spec_model = SFNO(modes_x=32, modes_y=32, modes_t=5, width=10, beta=-1e-2,
+                      output_steps=10)
+    # the train steps at batch 4, then one prediction of 8 held-out samples
+    spec_want = expected_sfno([(8, rn)], (4, rn, spec["train_steps"]), 4, 32, 10, 10)
+    ex_rows["sfno_5ep_spectra"] = {
+        "seconds": time.perf_counter() - t0, "gap": spec["gap"], "history": spec["history"],
+        "train_steps": spec["train_steps"], "launches": spec_launches,
+        "expected_launches": spec_want}
+    print(f"main path 10: ex2_sfno_5ep_spectra, 64 train and 64 held-out samples of phase "
+          f"4's dataset, {len(spec['history'])} epochs ({spec['train_steps']} steps) in "
+          f"{ex_rows['sfno_5ep_spectra']['seconds']:.2f} s: losses {spec['history']}, gap "
+          f"{spec['gap']:.4f}; launches {spec_launches}, expected {spec_want}", flush=True)
+    _require(np.isfinite(spec["gap"]) and np.isfinite(spec["history"]).all(),
+             "finite spectra gap and losses")
+    _require({k: spec_launches[k] for k in spec_want} == spec_want,
+             f"ex2_sfno_5ep_spectra launches {spec_launches}, expected {spec_want}")
+    ex_rows["sfno_5ep_spectra"]["kernel_vs_plain"] = hold_instances(
+        "ex2_sfno_5ep_spectra", spec_model, [(4, rn), (8, rn)], 32, 10, 10)
+
+    # --demo-plots: the eval phase at 256^2 in fp64 on the test set of phase 12
+    t0 = time.perf_counter()
+    demo_plots = train.main([*targv[:-1], "--eval-only", "--test-file", ft_data,
+                             "--test-res", str(N), "--double", "--num-test-samples", "2",
+                             "--demo-plots", "2"])
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ModuleNotFoundError:
+        has_mpl = False
+    ex_rows["demo_plots"] = {"seconds": time.perf_counter() - t0, "test": demo_plots["test"],
+                             "figures": demo_plots["demo_plots"], "matplotlib": has_mpl}
+    print(f"main path 10: train.main --demo-plots 2 (eval at {N}^2 fp64) in "
+          f"{ex_rows['demo_plots']['seconds']:.2f} s: test metric "
+          f"{demo_plots['test']:.4e}, figures {demo_plots['demo_plots']} (matplotlib "
+          f"{'present' if has_mpl else 'absent'})", flush=True)
+    _require(np.isfinite(demo_plots["test"]), "finite demo-plots test metric")
+    _require(len(demo_plots["demo_plots"]) == (4 if has_mpl else 0)
+             and all(os.path.exists(f) for f in demo_plots["demo_plots"]),
+             "demo plots written where matplotlib is installed")
+
+    # -- 16. the utilities on the card ---------------------------------------
+    from tpu_cfd_torch.utils import profiling, tools
+
+    util_ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl="dft_galerkin",
+                                     fused=True, device=dev)
+    util_w = initial_spectrum(B)
+    util_ns.forward(util_w, DT, 1)
+    trace_dir = os.path.join(tmp, "trace")
+    ss.reset_launch_counts()
+    with tools.timer(f"10 fused rollout steps, b{B} {N}^2, traced") as util_t:
+        with profiling.profile_to(trace_dir):
+            with profiling.trace_annotation("rollout"):
+                util_ns.forward(util_w, DT, 10)
+    traced_launches = ss.LAUNCHES["advect"]
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    _require(len(traces) == 1, f"one trace written, found {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    advect = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "advect_kernel" in e.get("name", ""))
+    annotated = any(e.get("name") == "rollout" for e in events)
+    summary = profiling.device_memory_summary().splitlines()
+    util_row = {"timer_s": util_t["seconds"], "trace_advect_kernels": advect,
+                "advect_launches": traced_launches, "annotation": annotated,
+                "memory_total": summary[-1].strip(), "memory_lines": len(summary) - 1}
+    print(f"phase 16: profile_to wrote {os.path.basename(traces[0])}: {advect} "
+          f"spectral_advect kernels (advect_kernel) of the {traced_launches} launched in "
+          f"10 steps, annotation {annotated}; device_memory_summary: "
+          f"{summary[-1].strip()}", flush=True)
+    _require(traced_launches == 50 and 0 < advect <= traced_launches and annotated,
+             "the trace holds spectral_advect launches and the annotation")
+    tmp_ctx.cleanup()
 
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
                "spectral_advect": ("spectral_step", "advect"),
@@ -1656,15 +1983,21 @@ def main() -> int:
     # the spectral-step kernels run on main paths 1 (mcwilliams), 5 (kolmogorov)
     # and 8 (the demo's 128^2 dataset); the demo's DFT pair runs at m=12, so
     # its launches join the sweep-shape rows; path 7 (fp64) launches none
+    # main path 9 runs row 1 (generate) and the FFN (train: the recipe's
+    # SpectralConvS takes torch.fft); main path 10 the DFT pair at m=16 and
+    # m=32 (the examples' shapes) and the FFN, whose launches join the rows
+    # of the recipe's shapes
+    ex_launches = {k: shp_launches[k] + spec_launches[k] for k in shp_launches}
     launches = {**{("spectral_step", k): v + kol_launches[k] + demo_launches[k]
-                   for k, v in gen_launches.items()},
-                **{("spectral_conv", k): v + sweep_launches[k] for k, v in
-                   train_launches.items() if k in sc.LAUNCHES},
+                   + dp_gen_launches[k] for k, v in gen_launches.items()},
+                **{("spectral_conv", k): v + sweep_launches[k] + dp_train_launches[k]
+                   + ex_launches[k] for k, v in train_launches.items() if k in sc.LAUNCHES},
                 ("spectral_conv", "modes_fused_sweep"):
                     sweep_launches["modes_fused"] + demo_launches["modes_fused"],
                 ("spectral_conv", "inverse_fused_sweep"):
                     sweep_launches["inverse_fused"] + demo_launches["inverse_fused"],
-                ("ffn", "ffn"): train_launches["ffn"] + demo_launches["ffn"],
+                ("ffn", "ffn"): train_launches["ffn"] + demo_launches["ffn"]
+                + dp_train_launches["ffn"] + ex_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
                 ("adam", "adam"): sweep_launches["adam"]}
@@ -1677,15 +2010,17 @@ def main() -> int:
          "bound_tf32x3_ms": r["bound_tf32x3_ms"], "library_ms": r["library_ms"],
          "shape": shapes.get(name, shapes.get(src)),
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
-         **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key]}}
+         **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key],
+                                  "9": dp_train_launches[key], "10": ex_launches[key]}}
             if name in ("dft2d_modes", "dft2d_inverse") else {}),
          **({"launches_by_path": {"3": sweep_launches[key[:-len("_sweep")]],
                                   "8": demo_launches[key[:-len("_sweep")]]}}
             if name in ("dft2d_modes_sweep", "dft2d_inverse_sweep") else {}),
-         **({"launches_by_path": {"2": train_launches["ffn"], "8": demo_launches["ffn"]}}
+         **({"launches_by_path": {"2": train_launches["ffn"], "8": demo_launches["ffn"],
+                                  "9": dp_train_launches["ffn"], "10": ex_launches["ffn"]}}
             if name == "pointwise_ffn" else {}),
          **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key],
-                                  "8": demo_launches[key]}}
+                                  "8": demo_launches[key], "9": dp_gen_launches[key]}}
             if src == "spectral_step" else {})}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
@@ -1706,7 +2041,8 @@ def main() -> int:
                      "fno": {**fno_rows, "rollout_sample_steps_per_s": fno_rollout,
                              "full_dataset_hours": full_h}},
         "finetune_main_path_7": ft_row, "demo_main_path_8": demo_row, "fvm_phase_13": fvm_rows,
-        "card": card}
+        "data_parallel_main_path_9": dp_rows, "examples_main_path_10": ex_rows,
+        "utilities_phase_16": util_row, "card": card}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

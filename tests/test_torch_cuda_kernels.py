@@ -337,3 +337,32 @@ def test_sfno_kernel_route_matches_plain(dev):
     assert _rel_err(outs[0], outs[1]) < 1e-5
     for k in grads[0]:
         assert _rel_err(grads[0][k], grads[1][k]) < 1e-4, k
+
+
+def test_kernels_launch_on_their_tensors_card():
+    """The FFN and K2 on cuda:1 while cuda:0 is current: each launch goes to
+    the card of its tensors (a ``<<<>>>`` launch goes to the current one),
+    and the FFN's launch plan and K2's shared-memory attribute hold on each
+    card. The FFN runs on cuda:0 first, so its plan exists there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.cuda.device(0):
+        for d in (torch.device("cuda", 0), torch.device("cuda", 1)):
+            gen = torch.Generator(device=d).manual_seed(3)
+            x = torch.randn(4096, 20, device=d, generator=gen)
+            w = [torch.randn(*s, device=d, generator=gen) * a for s, a in (
+                ((80, 20), 0.3), ((80,), 0.1), ((20, 80), 0.15), ((20,), 0.1))]
+            got = tffn.ffn_forward(x, *w, "GELU")
+            assert got.device == d
+            assert _rel_err(got, tffn._ffn_plain(x, *w, "GELU")) < 1e-5
+        d1 = torch.device("cuda", 1)
+        grid = grids.Grid((256, 256), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
+        c = ss.constants("galerkin", grid, 1e-3, 0.1, 1e-3, d1)
+        gen = torch.Generator(device=d1).manual_seed(4)
+        w = torch.randn(2, c["R"], c["m"], dtype=torch.complex64, device=d1, generator=gen)
+        A = ss._inverse_first_plain(w, c)
+        T = ss.advect(A, c, ss.resolve_block_cols("auto", 256, c["m"]))
+        torch.cuda.synchronize(d1)
+        assert T.device == d1 and torch.cuda.current_device() == 0
+        assert _rel_err(T, ss._advect_plain(A, c)) < 1e-5

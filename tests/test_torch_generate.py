@@ -175,11 +175,17 @@ def test_cli_without_card_or_no_cuda_raises(tmp_path):
 
 
 def test_unported_entry_points_raise(tmp_path, monkeypatch):
-    """--data-parallel waits for ROADMAP Queue A item 6 on every dataset;
-    an unknown dataset name exits with the usage line."""
+    """--data-parallel --no-cuda runs every dataset CLI in a world of one
+    and stores the single-process dataset (tests/test_torch_parallel.py
+    holds two ranks); an unknown dataset name exits with the usage line."""
     for main in (tgen.main_mcwilliams, tgen.main_kolmogorov, tgen.main_fno):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(_cli(tmp_path, 2, "--data-parallel"))
+        p1 = main(_cli(tmp_path / main.__name__ / "single", 2))
+        p2 = main(_cli(tmp_path / main.__name__ / "dp", 2, "--data-parallel"))
+        assert not torch.distributed.is_initialized()
+        with np.load(p1) as a, np.load(p2) as b:
+            assert set(a.files) == set(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{main.__name__} {k}")
     monkeypatch.setattr(sys, "argv", ["generate", "nope"])
     with pytest.raises(SystemExit):
         tgen.main()

@@ -13,6 +13,7 @@ near 3e-5 of it) is held to that floor instead of its own largest entry.
 """
 
 import json
+import os
 
 import jax
 import numpy as np
@@ -178,12 +179,43 @@ def test_optimizers_and_unported_flags():
     assert isinstance(tpipeline.get_optimizer("Lion", p), tpipeline.Lion)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tpipeline.get_optimizer("lamb", p)
-    for flags in (["--data-parallel"], ["--demo-plots", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 6"):
-            train.main(["--no-cuda", *flags])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main([])
+
+
+def test_cli_runs_data_parallel_and_demo_plots(tmp_path, monkeypatch):
+    """``--data-parallel --no-cuda`` trains in a world of one, as without the
+    flag; ``--demo-plots 2`` draws two test samples' predicted and true
+    trajectories after the eval phase."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    rng = np.random.default_rng(7)
+    path = tmp_path / "traj.npz"
+    np.savez(path, vorticity=rng.standard_normal((6, 25, 16, 16)).astype(np.float32))
+    for var, sub in (("MODEL_PATH", "m"), ("LOG_PATH", "l"), ("FIG_PATH", "f")):
+        monkeypatch.setattr(tpipeline, var, str(tmp_path / sub))
+    monkeypatch.setattr(train, "MODEL_PATH", str(tmp_path / "m"))
+    monkeypatch.setattr(train, "LOG_PATH", str(tmp_path / "l"))
+    common = ["--no-cuda", "--example", "McWilliams2d", "--train-file", str(path),
+              "--res", "16", "--modes", "4", "--modes-t", "3", "--width", "4",
+              "--num-layers", "3", "--batch-size", "2", "--epochs", "2",
+              "--num-samples", "4", "--num-val-samples", "2", "--train-only"]
+    base = train.main(common)
+    dp = train.main([*common, "--data-parallel"])
+    assert not torch.distributed.is_initialized()
+    assert dp["history"] == [dict(h, seconds=d["seconds"])
+                             for h, d in zip(base["history"], dp["history"])]
+    for k, v in base["model"].state_dict().items():
+        assert torch.equal(dp["model"].state_dict()[k], v), k
+    out = train.main([*common[:-1], "--eval-only", "--test-file", str(path),
+                      "--test-res", "16", "--num-test-samples", "2",
+                      "--test-t-start", "2", "--demo-plots", "2"])
+    assert np.isfinite(out["test"])
+    want = [str(tmp_path / "f" / f"McWilliams2d_16x16_sample{i}_{name}.png")
+            for i in range(2) for name in ("pred", "true")]
+    assert out["demo_plots"] == want and all(os.path.exists(f) for f in want)
 
 
 def test_cli_takes_bf16_remat_and_lion(tmp_path, monkeypatch):

@@ -14,7 +14,10 @@ Kolmogorov and FNO datasets (``data/generate.py``) with the pieces of the
 finite-volume stack that their initial conditions need: the grid data model
 and boundary conditions, finite differences, fast diagonalization and the
 pressure projection (``solvers/pressure.py``), and the GRF sampler
-(``data/grf.py``).
+(``data/grf.py``); a-posteriori fine-tuning (``train/finetune.py``) and the
+FVM solver (``solvers/fvm.py``); data parallelism over ``torch.distributed``
+behind both CLIs' ``--data-parallel`` (``parallel/``), the utilities
+(``utils/``) and the examples (``examples/``).
 """
 
 __version__ = "0.1.0"

@@ -15,12 +15,19 @@ Usage (the JAX package's flags; ``--no-cuda`` runs on the CPU):
   python -m tpu_cfd_torch.data.generate fno --grid-size 256 --subsample 4 \
       --num-samples 1280 --visc 1e-3 [--replicable-init]
 
-``--data-parallel`` is not ported yet and raises ``NotImplementedError``.
+``--data-parallel`` splits each batch's samples over the ranks of a process
+group and stores the dataset the run without it stores. On the card:
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m tpu_cfd_torch.data.generate mcwilliams --data-parallel ...
+or plainly ``python -m tpu_cfd_torch.data.generate mcwilliams
+--data-parallel ...``, which starts one worker a visible card; with
+``--no-cuda`` a world of one on gloo (``parallel.launch``).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import sys
@@ -28,9 +35,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from tpu_cfd_torch import grids
+from tpu_cfd_torch import grids, parallel
 from tpu_cfd_torch.data import data_utils
 from tpu_cfd_torch.data.grf import GRF2d
 from tpu_cfd_torch.device import resolve_device
@@ -149,6 +157,66 @@ def default_fft_impl(n: int, batch_size: int, double: bool, dealias: bool,
     return impl
 
 
+def _resume_plan(args, data_filepath: str, meta_path: str, fft_impl: str,
+                 fft_impl_explicit: bool, impl_compatible, logger) -> dict:
+    """Reads the files of a resumable run: how many samples exist, whether
+    the run is done (the parts then merged), and the transform the remaining
+    samples take (the sidecar's pin). Rank 0 alone calls it."""
+    plan = {"done": False, "existing": 0, "fft_impl": fft_impl,
+            "mxu_precision": getattr(args, "mxu_precision", "high"),
+            "sidecar_needs_repin": False}
+    existing = 0
+    if os.path.exists(data_filepath) and not args.force_rerun:
+        existing = data_utils.count_existing_samples(data_filepath)
+        if existing >= args.num_samples:
+            logger.info(f"{data_filepath} already has {existing} samples; done.")
+            plan["done"] = True
+            return plan
+    elif args.force_rerun and os.path.exists(data_filepath):
+        os.remove(data_filepath)
+        if os.path.exists(meta_path):
+            os.remove(meta_path)
+    existing = max(existing, data_utils.count_existing_samples(data_filepath))
+    plan["existing"] = existing
+    if existing >= args.num_samples:
+        data_utils.merge_parts(data_filepath)
+        plan["done"] = True
+        return plan
+
+    # the sidecar pins the transform of a resumable run; parts of one
+    # dataset never mix transforms silently. Writes wait until every
+    # validation has passed.
+    if existing > 0 and os.path.exists(meta_path):
+        meta = _read_meta(meta_path)
+        rec_impl = meta.get("fft_impl")
+        rec_prec = meta.get("mxu_precision")
+        if rec_impl and rec_impl != fft_impl:
+            if fft_impl_explicit:
+                logger.warning(
+                    f"resuming {data_filepath} with --fft-impl {fft_impl} "
+                    f"but existing samples were generated with {rec_impl}; "
+                    "the dataset will mix transform implementations"
+                )
+                plan["sidecar_needs_repin"] = True
+            elif not impl_compatible(rec_impl):
+                logger.warning(
+                    f"resume: recorded fft_impl={rec_impl} is incompatible "
+                    "with this run's integrator/precision/dealias settings; "
+                    f"continuing with {fft_impl} — the dataset will mix "
+                    "transform implementations"
+                )
+                plan["sidecar_needs_repin"] = True
+            else:
+                logger.info(
+                    f"resume: adopting recorded fft_impl={rec_impl} "
+                    f"(current default would be {fft_impl})"
+                )
+                plan["fft_impl"] = rec_impl
+                if rec_prec:
+                    plan["mxu_precision"] = rec_prec
+    return plan
+
+
 def run_generation(
     args,
     make_initial_vorticity,
@@ -161,17 +229,25 @@ def run_generation(
 
     ``make_initial_vorticity(sample_ids, grid, dtype, device)`` returns the
     ``(b, n, n)`` initial vorticity of those samples.
+
+    With ``--data-parallel`` it runs on every rank of the process group
+    (``parallel.launch``): each rank rolls out its ``np.array_split`` share
+    of a batch's samples (a rank may hold none and still joins every
+    collective), and rank 0 alone reads and writes files: it counts the
+    resume point, writes the sidecar, gathers the records into the parts and
+    merges them. Each sample's IC comes from its own generator, so the
+    stored dataset does not depend on the world size, and the transform is
+    the one the whole batch would take without the flag.
     """
     if args.boundary != "periodic":
         raise NotImplementedError(
             f"--boundary {args.boundary}: spectral data generation is periodic-only"
         )
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError(
-            "--data-parallel is not ported to PyTorch yet: it waits for "
-            "ROADMAP.md Queue A item 6 (torch.distributed data parallelism)"
-        )
     device = resolve_device("cpu" if args.no_cuda else None)
+    mesh = parallel.make_mesh() if args.data_parallel else None
+    root = mesh is None or dist.get_rank() == 0
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     n = args.grid_size
     subsample = args.subsample
     ns = n // subsample
@@ -186,7 +262,8 @@ def run_generation(
     compute_dtype = torch.float64 if args.double else torch.float32
 
     filepath = args.filepath or data_utils.DATA_PATH
-    os.makedirs(filepath, exist_ok=True)
+    if root:
+        os.makedirs(filepath, exist_ok=True)
     if args.filename is None:
         extra = "_extra" if args.extra_vars else ""
         dtype_str = "_fp64" if args.double else ""
@@ -198,23 +275,11 @@ def run_generation(
     data_filepath = os.path.join(filepath, args.filename)
     meta_path = data_filepath + ".meta.json"
 
-    logger = logger or data_utils.get_logger()
-    logger.info(" | ".join(f"{k}={v}" for k, v in vars(args).items()))
-
-    existing = 0
-    if os.path.exists(data_filepath) and not args.force_rerun:
-        existing = data_utils.count_existing_samples(data_filepath)
-        if existing >= args.num_samples:
-            logger.info(f"{data_filepath} already has {existing} samples; done.")
-            return data_filepath
-    elif args.force_rerun and os.path.exists(data_filepath):
-        os.remove(data_filepath)
-        if os.path.exists(meta_path):
-            os.remove(meta_path)
-    existing = max(existing, data_utils.count_existing_samples(data_filepath))
-    if existing >= args.num_samples:
-        data_utils.merge_parts(data_filepath)
-        return data_filepath
+    if root:
+        logger = logger or data_utils.get_logger()
+        logger.info(" | ".join(f"{k}={v}" for k, v in vars(args).items()))
+    else:  # warnings and errors only
+        logger = logging.getLogger(f"tpu_cfd_torch.datagen.rank{dist.get_rank()}")
 
     grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
     fft_impl = getattr(args, "fft_impl", None)
@@ -232,7 +297,6 @@ def run_generation(
             f"dataset's time integrator ({type(solver).__name__}); the "
             "fused kernel implements the low-storage RK4-CN stepper only"
         )
-    mxu_precision = getattr(args, "mxu_precision", "high")
 
     def _impl_compatible(impl: str) -> bool:
         """Can ``impl`` run under this invocation's solver configuration?"""
@@ -242,38 +306,16 @@ def run_generation(
             return not args.no_dealias
         return True
 
-    # the sidecar pins the transform of a resumable run; parts of one
-    # dataset never mix transforms silently. Writes wait until every
-    # validation below has passed.
-    sidecar_needs_repin = False
-    if existing > 0 and os.path.exists(meta_path):
-        meta = _read_meta(meta_path)
-        rec_impl = meta.get("fft_impl")
-        rec_prec = meta.get("mxu_precision")
-        if rec_impl and rec_impl != fft_impl:
-            if fft_impl_explicit:
-                logger.warning(
-                    f"resuming {data_filepath} with --fft-impl {fft_impl} "
-                    f"but existing samples were generated with {rec_impl}; "
-                    "the dataset will mix transform implementations"
-                )
-                sidecar_needs_repin = True
-            elif not _impl_compatible(rec_impl):
-                logger.warning(
-                    f"resume: recorded fft_impl={rec_impl} is incompatible "
-                    "with this run's integrator/precision/dealias settings; "
-                    f"continuing with {fft_impl} — the dataset will mix "
-                    "transform implementations"
-                )
-                sidecar_needs_repin = True
-            else:
-                logger.info(
-                    f"resume: adopting recorded fft_impl={rec_impl} "
-                    f"(current default would be {fft_impl})"
-                )
-                fft_impl = rec_impl
-                if rec_prec:
-                    mxu_precision = rec_prec
+    plan = (_resume_plan(args, data_filepath, meta_path, fft_impl, fft_impl_explicit,
+                         _impl_compatible, logger) if root else None)
+    if mesh is not None:
+        box = [plan]
+        dist.broadcast_object_list(box, src=0)
+        plan = box[0]
+    if plan["done"]:
+        return data_filepath
+    existing, fft_impl = plan["existing"], plan["fft_impl"]
+    mxu_precision = plan["mxu_precision"]
     fused = fft_impl.endswith("_fused")
     ns2d = NavierStokes2DSpectral(
         viscosity=visc,
@@ -303,17 +345,18 @@ def run_generation(
         "dt": dt, "visc": visc, "seed": args.seed,
         "double": bool(args.double), "dealias": not args.no_dealias,
     }
-    if existing == 0:
+    if root and existing == 0:
         _write_meta(meta_path, meta_now)
-    elif sidecar_needs_repin:
+    elif root and plan["sidecar_needs_repin"]:
         _repin_meta(meta_path, fft_impl, record_mix=True, base=meta_now)
 
     batch_size = args.batch_size
     todo = args.num_samples - existing
     num_batches = math.ceil(todo / batch_size)
+    world = "" if mesh is None else f" over {dist.get_world_size()} rank(s)"
     logger.info(
         f"Generating {todo} samples in {num_batches} batches "
-        f"(resuming from {existing}) on {device} -> {data_filepath}"
+        f"(resuming from {existing}) on {device}{world} -> {data_filepath}"
     )
 
     for b in range(num_batches):
@@ -322,15 +365,23 @@ def run_generation(
         logger.info(
             f"batch [{b + 1}/{num_batches}] samples {sample_ids[0]}..{sample_ids[-1]}"
         )
-        vort_init = make_initial_vorticity(sample_ids, grid, compute_dtype, device)
-        result = pipeline(torch.fft.rfft2(vort_init))
-        result = {k: np.asarray(v, dtype=save_dtype) for k, v in result.items()}
-
-        w = result["vorticity"]
-        if not np.isfinite(w).all():
+        mine = sample_ids if mesh is None else parallel.shard_batch(sample_ids, mesh)
+        result = None
+        if len(mine):
+            vort_init = make_initial_vorticity(mine, grid, compute_dtype, device)
+            result = pipeline(torch.fft.rfft2(vort_init))
+            result = {k: np.asarray(v, dtype=save_dtype) for k, v in result.items()}
+        finite = result is None or bool(np.isfinite(result["vorticity"]).all())
+        if mesh is not None:
+            finite = parallel.all_ranks(finite, mesh)
+            result = parallel.gather_batch(result, mesh)
+        if not finite:
             raise FloatingPointError(
                 f"trajectory diverged in batch {b} (samples {sample_ids[0]}..)"
             )
+        if not root:
+            continue
+        w = result["vorticity"]
         vort_norm = np.linalg.norm(w[:, -1], axis=(-2, -1)).mean() / ns
         logger.info(
             f"  final-snapshot vorticity ell2 {vort_norm:.4e} | shapes {w.shape}"
@@ -342,9 +393,12 @@ def run_generation(
         result["random_states"] = np.asarray(sample_ids, dtype=np.int32)
         data_utils.save_part(result, data_filepath)
 
-    data_utils.merge_parts(data_filepath)
-    logger.info(f"Done: {data_filepath}")
-    if args.demo_plots:
+    if root:
+        data_utils.merge_parts(data_filepath)
+        logger.info(f"Done: {data_filepath}")
+    if mesh is not None:
+        dist.barrier()  # every rank returns once the merged file exists
+    if root and args.demo_plots:
         try:
             out = data_utils.verify_trajectories(
                 data_filepath, dt=record_every * dt, T_warmup=T_warmup,
@@ -363,7 +417,10 @@ def main_mcwilliams(argv=None):
     )
     parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
                         diam=2 * math.pi, forcing="none")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
+    if args.data_parallel and not dist.is_initialized():
+        return parallel.launch(main_mcwilliams, argv, cuda=not args.no_cuda)
 
     def make_ic(sample_ids, grid, dtype, device):
         noise = torch.stack([
@@ -384,7 +441,10 @@ def main_kolmogorov(argv=None):
     parser = data_utils.get_args_ns2d("Generate NSE 2d Kolmogorov flow")
     parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
                         diam=2 * math.pi, gamma=0.1, max_velocity=5.0)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
+    if args.data_parallel and not dist.is_initialized():
+        return parallel.launch(main_kolmogorov, argv, cuda=not args.no_cuda)
     diam = data_utils.parse_diam(args.diam)
     n = args.grid_size
     grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
@@ -417,7 +477,10 @@ def main_fno(argv=None):
     parser = data_utils.get_args_ns2d("Generate the original FNO data for NSE in 2D")
     parser.set_defaults(time=50.0, time_warmup=30.0, dt=1e-3, num_steps=100,
                         diam=1.0, scale=0.1, alpha=2.5, tau=7.0, peak_wavenumber=1)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
+    if args.data_parallel and not dist.is_initialized():
+        return parallel.launch(main_fno, argv, cuda=not args.no_cuda)
     diam = data_utils.parse_diam(args.diam)
     n = args.grid_size
     grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))

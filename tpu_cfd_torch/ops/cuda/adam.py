@@ -100,9 +100,11 @@ def _launch(rows: np.ndarray, chunks: int, device, lr: float, b1: float,
             b2: float, eps: float, c1: float, c2: float) -> None:
     """One launch over the leaves of ``rows`` (int64: p, g, m, v, n, first chunk)."""
     lib = _lib()
-    err = lib.adam_step_leaves(
-        rows.ctypes.data, len(rows), chunks, lr, b1, b2, 1.0 - b1, 1.0 - b2,
-        eps, c1, c2, torch.cuda.current_stream(device).cuda_stream)
+    # a launch goes to the host thread's current device: make it the leaves'
+    with torch.cuda.device(device):
+        err = lib.adam_step_leaves(
+            rows.ctypes.data, len(rows), chunks, lr, b1, b2, 1.0 - b1, 1.0 - b2,
+            eps, c1, c2, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel adam_step_leaves failed with cudaError {err}")
     LAUNCHES["adam"] += 1

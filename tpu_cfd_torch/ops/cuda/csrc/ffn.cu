@@ -340,36 +340,46 @@ __global__ void __launch_bounds__(MAX_THREADS) ffn_kernel(
   cp_async_wait<0>();
 }
 
+// A launch plan: the SMs of a device, and how many blocks of a layout fit
+// on one, with the shared-memory attribute set for that layout.
+struct Plan {
+  int sms = 0, smem = -1, warps = 0, blocks = 0;
+};
+constexpr int kMaxDevices = 64;
+
 // Blocks a launch: as many as fit on the SMs at once, no more than there
-// are tiles for their warps.
+// are tiles for their warps. The launch and the attribute go to the current
+// device, so the plan is kept a device.
 template <int P, typename T, int ACT>
 int launch_rows(const T* x, const float* w1, const float* b1, const float* w2,
                 const float* b2, T* out, long long M, const FfnLayout& L,
                 int smem, int act, cudaStream_t stream) {
-  static int sms = 0, fit_smem = -1, fit_warps = 0, fit_blocks = 0;
+  static Plan plans[kMaxDevices];
   const auto kernel = ffn_kernel<P, T, ACT>;
-  cudaError_t e;
-  if (smem != fit_smem || L.warps != fit_warps) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  Plan& plan = plans[dev];
+  if (smem != plan.smem || L.warps != plan.warps) {
     if (smem > 48 * 1024) {
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
       if (e != cudaSuccess) return (int)e;
     }
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&plan.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit_blocks, kernel,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan.blocks, kernel,
                                                       32 * L.warps, smem);
     if (e != cudaSuccess) return (int)e;
-    if (fit_blocks < 1) return (int)cudaErrorInvalidValue;
-    fit_smem = smem;
-    fit_warps = L.warps;
+    if (plan.blocks < 1) return (int)cudaErrorInvalidValue;
+    plan.smem = smem;
+    plan.warps = L.warps;
   }
   const long long tiles = (M + 15) / 16;
   const long long want = (tiles + L.warps - 1) / L.warps;
-  const long long blocks = want < (long long)fit_blocks * sms ? want
-                                                             : (long long)fit_blocks * sms;
+  const long long fit = (long long)plan.blocks * plan.sms;
+  const long long blocks = want < fit ? want : fit;
   kernel<<<(unsigned)blocks, 32 * L.warps, smem, stream>>>(x, w1, b1, w2, b2, out,
                                                            M, L, act);
   return (int)cudaGetLastError();

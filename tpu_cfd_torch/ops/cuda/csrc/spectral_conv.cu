@@ -843,12 +843,15 @@ int dft2d_modes_fused(const void* v, const void* FyT, const void* FxT, void* g,
   if (B == 0) return 0;
   Layout L;
   memcpy(&L, layout, sizeof(Layout));
+  // the attribute holds for the current device only (the wrapper makes it
+  // the tensors'), so it is set at each launch
   cudaError_t e = cudaFuncSetAttribute(
       modes_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, modes_fused_kernel,
                                                     FT, smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -875,8 +878,9 @@ int dft2d_inverse_fused(const void* g, const void* GxT, const void* GyT, void* o
       inverse_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inverse_fused_kernel,
                                                     FT, smem_bytes);
   if (e != cudaSuccess) return (int)e;

@@ -456,6 +456,8 @@ __global__ void __launch_bounds__(K13_THREADS) forward_first_kernel(
   }
 }
 
+// The attribute holds for the current device only, so it is set at each
+// launch, on the device the wrapper made current (the tensors').
 int set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

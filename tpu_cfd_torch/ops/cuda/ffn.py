@@ -143,11 +143,14 @@ def _launch_ffn(x2: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
         return out
     if x2.data_ptr() % 16:  # the row tiles come in as 16-byte copies
         x2 = x2.clone()
-    err = _lib().pointwise_ffn(
-        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), m, _ACT_CODE[act],
-        int(x2.dtype == torch.bfloat16), (ctypes.c_int * len(ints))(*ints), nbytes,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+    lib = _lib()  # built at first use
+    # a launch goes to the host thread's current device: make it x2's
+    with torch.cuda.device(x2.device):
+        err = lib.pointwise_ffn(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), m, _ACT_CODE[act],
+            int(x2.dtype == torch.bfloat16), (ctypes.c_int * len(ints))(*ints), nbytes,
+            torch.cuda.current_stream(x2.device).cuda_stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise RuntimeError(
             f"pointwise_ffn does not take K={k}, H={h}, K_out={k_out}: no block "

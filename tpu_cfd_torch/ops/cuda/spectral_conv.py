@@ -202,6 +202,9 @@ def _ok(err: int, name: str) -> None:
 
 
 def _stream(device) -> int:
+    """The current stream of ``device``. A launch (``<<<>>>``) goes to the
+    host thread's current device, so each launch below runs under
+    ``torch.cuda.device`` of its tensors."""
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -218,9 +221,11 @@ def _check_modes(v: Tensor, c: dict):
 def _launch_modes_two_pass(v: Tensor, c: dict) -> Tensor:
     B, nx, ny, my2, mx2, g = _check_modes(v, c)
     h = torch.empty((B, nx, my2), dtype=torch.complex64, device=v.device)
-    _ok(_lib().dft2d_modes(v.data_ptr(), c["FyT"].data_ptr(), c["FxT"].data_ptr(),
-                           h.data_ptr(), g.data_ptr(), B, nx, ny, my2, mx2,
-                           _stream(v.device)), "dft2d_modes")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(v.device):
+        _ok(lib.dft2d_modes(v.data_ptr(), c["FyT"].data_ptr(), c["FxT"].data_ptr(),
+                               h.data_ptr(), g.data_ptr(), B, nx, ny, my2, mx2,
+                               _stream(v.device)), "dft2d_modes")
     LAUNCHES["modes"] += 1
     return g
 
@@ -230,10 +235,12 @@ def _launch_modes_fused(v: Tensor, c: dict, layout) -> Tensor:
     if v.data_ptr() % 16:  # the kernel copies rows of v in 16-byte pieces
         v = v.clone()
     ints, nbytes = layout
-    _ok(_lib().dft2d_modes_fused(v.data_ptr(), c["FyT"].data_ptr(),
-                                 c["FxT"].data_ptr(), g.data_ptr(), B,
-                                 (ctypes.c_int * len(ints))(*ints), nbytes,
-                                 _stream(v.device)), "dft2d_modes_fused")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(v.device):
+        _ok(lib.dft2d_modes_fused(v.data_ptr(), c["FyT"].data_ptr(),
+                                     c["FxT"].data_ptr(), g.data_ptr(), B,
+                                     (ctypes.c_int * len(ints))(*ints), nbytes,
+                                     _stream(v.device)), "dft2d_modes_fused")
     LAUNCHES["modes"] += 1
     LAUNCHES["modes_fused"] += 1
     return g
@@ -261,9 +268,11 @@ def _check_inverse(g: Tensor, c: dict):
 def _launch_inverse_two_pass(g: Tensor, scale: float, c: dict) -> Tensor:
     B, nx, ny, my2, mx2, out = _check_inverse(g, c)
     q = torch.empty((B, my2, nx), dtype=torch.complex64, device=g.device)
-    _ok(_lib().dft2d_inverse(g.data_ptr(), c["GxT"].data_ptr(), c["GyT"].data_ptr(),
-                             q.data_ptr(), out.data_ptr(), B, nx, ny, my2,
-                             mx2, float(scale), _stream(g.device)), "dft2d_inverse")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(g.device):
+        _ok(lib.dft2d_inverse(g.data_ptr(), c["GxT"].data_ptr(), c["GyT"].data_ptr(),
+                                 q.data_ptr(), out.data_ptr(), B, nx, ny, my2,
+                                 mx2, float(scale), _stream(g.device)), "dft2d_inverse")
     LAUNCHES["inverse"] += 1
     return out
 
@@ -273,10 +282,12 @@ def _launch_inverse_fused(g: Tensor, scale: float, c: dict, layout) -> Tensor:
     if g.data_ptr() % 16:  # the kernel copies planes of g in 16-byte pieces
         g = g.clone()
     ints, nbytes = layout
-    _ok(_lib().dft2d_inverse_fused(g.data_ptr(), c["GxT"].data_ptr(),
-                                   c["GyT"].data_ptr(), out.data_ptr(), B,
-                                   float(scale), (ctypes.c_int * len(ints))(*ints),
-                                   nbytes, _stream(g.device)), "dft2d_inverse_fused")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(g.device):
+        _ok(lib.dft2d_inverse_fused(g.data_ptr(), c["GxT"].data_ptr(),
+                                       c["GyT"].data_ptr(), out.data_ptr(), B,
+                                       float(scale), (ctypes.c_int * len(ints))(*ints),
+                                       nbytes, _stream(g.device)), "dft2d_inverse_fused")
     LAUNCHES["inverse"] += 1
     LAUNCHES["inverse_fused"] += 1
     return out

@@ -208,6 +208,9 @@ def _check(t: Tensor, shape, device, name: str) -> None:
 
 
 def _stream(device) -> int:
+    """The current stream of ``device``. A launch (``<<<>>>``) goes to the
+    host thread's current device, so each launch below runs under
+    ``torch.cuda.device`` of its tensors."""
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -226,9 +229,11 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
     b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
     _check(w, (b, R, m), c["G"].device, "state")
     A = _out(out, (b, 4, n, m), w)
-    _ok(_lib().spectral_inverse_first(
-        w.data_ptr(), c["GT"].data_ptr(), c["cf4"].data_ptr(), A.data_ptr(),
-        b, R, m, n, _stream(w.device)), "spectral_inverse_first")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(w.device):
+        _ok(lib.spectral_inverse_first(
+            w.data_ptr(), c["GT"].data_ptr(), c["cf4"].data_ptr(), A.data_ptr(),
+            b, R, m, n, _stream(w.device)), "spectral_inverse_first")
     LAUNCHES["inverse_first"] += 1
     return A
 
@@ -240,9 +245,11 @@ def _launch_advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
     if layout is None:
         raise ValueError(_smem_message(n, m, block_cols))
     T = _out(out, (b, n, m), A)
-    _ok(_lib().spectral_advect(
-        A.data_ptr(), c["il"].data_ptr(), c["fl"].data_ptr(), T.data_ptr(), b, n,
-        m, block_cols, *layout, _stream(A.device)), "spectral_advect")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(A.device):
+        _ok(lib.spectral_advect(
+            A.data_ptr(), c["il"].data_ptr(), c["fl"].data_ptr(), T.data_ptr(), b, n,
+            m, block_cols, *layout, _stream(A.device)), "spectral_advect")
     LAUNCHES["advect"] += 1
     return T
 
@@ -254,12 +261,14 @@ def _launch_forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
     _check(w, (b, R, m), dev, "state")
     _check(h, (b, R, m), dev, "stage memory")
     _check(c["forcing"], (R, m), dev, "forcing")
-    _ok(_lib().spectral_forward_first(
-        T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
-        c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
-        h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
-        c["dt_gammas"][k], c["mus"][k], _stream(w.device)),
-        "spectral_forward_first")
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(w.device):
+        _ok(lib.spectral_forward_first(
+            T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
+            c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
+            h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
+            c["dt_gammas"][k], c["mus"][k], _stream(w.device)),
+            "spectral_forward_first")
     LAUNCHES["forward_first"] += 1
     return w, h
 

@@ -148,18 +148,33 @@ def make_eval_step(model: torch.nn.Module, metric_fn: Callable,
 
 def eval_epoch(eval_step, dataset, batch_size: int, device,
                field: str = "vorticity",
-               rng: Optional[np.random.Generator] = None) -> float:
-    """Eval over a dataset, host-sliced batches (one sync per batch)."""
+               rng: Optional[np.random.Generator] = None, mesh=None) -> float:
+    """Eval over a dataset, host-sliced batches (one sync per batch). With a
+    ``mesh``, each rank evaluates its slice of each batch and the mean is
+    reduced over the ranks."""
     rng = np.random.default_rng(0) if rng is None else rng
     metrics = []
     for inp, out in dataset.batches(batch_size, rng, shuffle=False):
-        a = torch.from_numpy(inp[field]).to(device)
-        u = torch.from_numpy(out[field]).to(device)
-        metrics.append(float(eval_step(a, u)))
+        a, u = (shard_host(x[field], mesh) for x in (inp, out))
+        metrics.append(float(eval_step(torch.from_numpy(a).to(device),
+                                       torch.from_numpy(u).to(device))))
     if not metrics:
         raise ValueError(f"eval dataset yielded no batches (n={len(dataset)}, "
                          f"batch_size={batch_size})")
-    return float(np.mean(metrics))
+    mean = float(np.mean(metrics))
+    if mesh is not None:
+        mean = float(mean_over_ranks(torch.tensor(mean, dtype=torch.float64,
+                                                   device=device)))
+    return mean
+
+
+def shard_host(x: np.ndarray, mesh) -> np.ndarray:
+    """``x``, or with a mesh the rank's slice of its leading axis."""
+    if mesh is None:
+        return x
+    from tpu_cfd_torch.parallel import shard_batch
+
+    return np.ascontiguousarray(shard_batch(x, mesh))
 
 
 def _window_gather(data: Tensor, steps: int, out_steps: int):
@@ -175,37 +190,63 @@ def _window_gather(data: Tensor, steps: int, out_steps: int):
     return gather
 
 
+def _epoch_arrays(idx: np.ndarray, starts: np.ndarray, device, mesh):
+    """The epoch's ``(n_batches, batch)`` arrays on ``device``; with a mesh,
+    the rank's columns: its slice of every global batch."""
+    idx, starts = (np.asarray(a, dtype=np.int64) for a in (idx, starts))
+    if mesh is not None:
+        from tpu_cfd_torch.parallel import shard_batch
+
+        idx, starts = (shard_batch(a.T, mesh).T for a in (idx, starts))
+    return (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (idx, starts))
+
+
+def mean_over_ranks(t: Tensor) -> Tensor:
+    """The mean of ``t`` over the ranks (SUM then divide: gloo has no AVG)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t)
+    return t / dist.get_world_size()
+
+
 def make_device_epoch(model, loss_fn: Callable, optimizer, data: Tensor,
                       steps: int, out_steps: int, scheduler=None,
-                      grad_clip: float = 0.0):
+                      grad_clip: float = 0.0, mesh=None):
     """One training epoch over card-resident ``data`` ``(N, n, n, T)``.
 
     Returns ``run(idx, starts) -> losses``: ``idx`` and ``starts`` are the
     epoch's ``(n_batches, batch)`` arrays (``epoch_indices``), and the
-    per-step losses come back as one tensor on the card.
+    per-step losses come back as one tensor on the card. With a ``mesh``
+    (data parallelism, the model wrapped in ``DistributedDataParallel``),
+    every rank is given the same arrays, gathers its slice of each batch,
+    and the losses come back as their mean over the ranks: the global
+    batch's mean where the batch divides evenly.
     """
     gather = _window_gather(data, steps, out_steps)
     step = make_train_step(model, loss_fn, optimizer, scheduler, grad_clip)
 
     def run(idx: np.ndarray, starts: np.ndarray) -> Tensor:
-        idx_d = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(data.device)
-        starts_d = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(data.device)
+        idx_d, starts_d = _epoch_arrays(idx, starts, data.device, mesh)
         losses = [step(*gather(i, s)) for i, s in zip(idx_d, starts_d)]
-        return torch.stack(losses) if losses else data.new_zeros((0,))
+        losses = torch.stack(losses) if losses else data.new_zeros((0,))
+        return losses if mesh is None else mean_over_ranks(losses)
 
     return run
 
 
 def make_device_eval(model, metric_fn: Callable, data: Tensor, steps: int,
-                     out_steps: int, model_out_steps: Optional[int] = None):
-    """Whole-set eval over card-resident ``data``: ``run(idx, starts) -> mean``."""
+                     out_steps: int, model_out_steps: Optional[int] = None,
+                     mesh=None):
+    """Whole-set eval over card-resident ``data``: ``run(idx, starts) -> mean``
+    of the batches' metrics. With a ``mesh``, each rank takes its slice of
+    each batch and the sum of the metrics is reduced over the ranks."""
     gather = _window_gather(data, steps, out_steps)
     step = make_eval_step(model, metric_fn, model_out_steps)
 
     def run(idx: np.ndarray, starts: np.ndarray) -> Tensor:
-        idx_d = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(data.device)
-        starts_d = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(data.device)
-        return torch.stack([step(*gather(i, s)) for i, s in zip(idx_d, starts_d)]).mean()
+        idx_d, starts_d = _epoch_arrays(idx, starts, data.device, mesh)
+        metrics = torch.stack([step(*gather(i, s)) for i, s in zip(idx_d, starts_d)])
+        return metrics.mean() if mesh is None else mean_over_ranks(metrics.mean())
 
     return run
 

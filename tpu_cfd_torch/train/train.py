@@ -15,27 +15,50 @@ Example (the reference's McWilliams run):
 
 ``--compute-dtype bfloat16`` (bf16 activations in the lifting and the
 backbone), ``--remat`` (activation checkpointing) and ``--optimizer lion``
-work as in the JAX CLI. ``--data-parallel`` and ``--demo-plots`` are not
-ported yet and raise ``NotImplementedError``.
+work as in the JAX CLI. ``--demo-plots N`` draws N test samples' predicted
+and true trajectories into ``FIG_PATH`` after the eval phase (where
+matplotlib is installed; else it says so in one line).
+
+``--data-parallel`` trains over the ranks of a process group (one process a
+card, ``parallel.launch``): the model is wrapped in
+``DistributedDataParallel`` (parameters broadcast from rank 0, gradients
+averaged), every rank draws the same epoch windows from the same numpy
+stream and takes its slice of each global batch, which must divide by the
+world size, and the logged losses are the global means. Rank 0 alone writes
+logs and checkpoints and runs the eval phase. On the card:
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m tpu_cfd_torch.train.train --data-parallel ...
+or plainly with ``--data-parallel``, one worker a visible card; with
+``--no-cuda`` a world of one on gloo. The per-rank batch decides each
+SpectralConvS's route (``models.fused_conv.fused_pair_wins`` reads its
+planes): at the recipe's widths b=64 is 6,400 planes and takes
+``torch.fft`` on one card, but at world 4 each rank holds 1,600 planes and
+takes the DFT kernel pair.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import re
+import sys
 import time
 from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
+from tpu_cfd_torch import parallel
 from tpu_cfd_torch.data.data_utils import get_logger
 from tpu_cfd_torch.data.datasets import SpatioTemporalDataset
 from tpu_cfd_torch.device import resolve_device
 from tpu_cfd_torch.models import SFNO, init_like_flax, num_parameters
 from tpu_cfd_torch.train import losses, pipeline
 from tpu_cfd_torch.train.pipeline import DATA_PATH, LOG_PATH, MODEL_PATH
+from tpu_cfd_torch.utils import visualizations as viz
 
 # Default dataset files as the dataset CLIs name them
 DATA_FILES = {
@@ -50,14 +73,6 @@ DATA_FILES = {
         "test": "McWilliams2d_fp64_256x256_N16_v1e-3_T10_steps100.npz",
     },
 }
-
-_NOT_PORTED = {
-    "data_parallel": "--data-parallel waits for ROADMAP.md Queue A item 6 "
-                     "(torch.distributed data parallelism)",
-    "demo_plots": "--demo-plots waits for ROADMAP.md Queue A item 6 "
-                  "(utils/visualizations.py)",
-}
-
 
 def _resolve_data(example: str, split: str, override: str = None) -> str:
     if override:
@@ -85,17 +100,35 @@ def build_model(args) -> SFNO:
 
 def main(args=None) -> dict:
     """Runs the CLI; returns ``{"model", "n_params", "history", "test",
-    "checkpoint"}`` (the best model's path without its ``.pt`` suffix)."""
-    args = get_parser().parse_args(args)
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"{why}; not ported to PyTorch yet")
+    "checkpoint", "demo_plots"}`` (the best model's path without its ``.pt``
+    suffix; the figures written). Launched plainly on the card with
+    ``--data-parallel``, it returns None once the workers end."""
+    argv = list(sys.argv[1:] if args is None else args)
+    args = get_parser().parse_args(argv)
+    if args.data_parallel and not dist.is_initialized():
+        return parallel.launch(main, argv, cuda=not args.no_cuda)
     device = resolve_device("cpu" if args.no_cuda else None)
-    pipeline.ensure_paths()
-    stamp = datetime.now().strftime("%d_%b_%Y_%Hh%Mm")
-    logger = get_logger(os.path.join(LOG_PATH, f"{stamp}_train.log"),
-                        name="tpu_cfd_torch.train")
+    mesh = None
+    if args.data_parallel:
+        mesh = parallel.make_mesh()
+        world = dist.get_world_size()
+        if args.batch_size % world != 0:
+            raise ValueError(f"--data-parallel: batch size {args.batch_size} must be"
+                             f" divisible by the world size {world}")
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    root = mesh is None or dist.get_rank() == 0
+    if root:
+        pipeline.ensure_paths()
+        stamp = datetime.now().strftime("%d_%b_%Y_%Hh%Mm")
+        logger = get_logger(os.path.join(LOG_PATH, f"{stamp}_train.log"),
+                            name="tpu_cfd_torch.train")
+    else:  # warnings and errors only
+        logger = logging.getLogger(f"tpu_cfd_torch.train.rank{dist.get_rank()}")
     logger.info("Arguments: " + " | ".join(f"{k}={v}" for k, v in vars(args).items()))
+    if mesh is not None:
+        logger.info(f"Data-parallel over {dist.get_world_size()} rank(s): {mesh}, "
+                    f"{args.batch_size // dist.get_world_size()} samples a rank a step")
 
     example, n, fs = args.example, args.res, args.field
     time_steps, out_steps = args.time_steps, args.out_time_steps
@@ -112,6 +145,10 @@ def main(args=None) -> dict:
     model = build_model(args)
     init_like_flax(model, torch.Generator().manual_seed(args.seed))
     model.to(device)
+    # the module each step calls: under data parallelism DDP, which
+    # broadcasts the parameters from rank 0 and averages the gradients
+    net = model if mesh is None else DistributedDataParallel(
+        model, device_ids=None if device.type == "cpu" else [device.index])
     n_params = num_parameters(model)
     logger.info(f"Number of parameters: {n_params}")
     rng = np.random.default_rng(args.seed)
@@ -127,24 +164,24 @@ def main(args=None) -> dict:
                        and data_bytes <= args.device_data_limit_gb * 2 ** 30)
     if use_device_data:
         run_epoch = pipeline.make_device_epoch(
-            model, loss_func, optimizer,
+            net, loss_func, optimizer,
             torch.from_numpy(train_dataset.data[fs]).to(device), time_steps,
-            out_steps, scheduler, args.grad_clip)
+            out_steps, scheduler, args.grad_clip, mesh=mesh)
         run_eval = pipeline.make_device_eval(
-            model, loss_func, torch.from_numpy(val_dataset.data[fs]).to(device),
-            time_steps, out_steps, model_out_steps=out_steps)
+            net, loss_func, torch.from_numpy(val_dataset.data[fs]).to(device),
+            time_steps, out_steps, model_out_steps=out_steps, mesh=mesh)
         logger.info(f"Device-resident data: {data_bytes / 2 ** 20:.0f} MiB on {device}")
     else:
-        train_step = pipeline.make_train_step(model, loss_func, optimizer,
+        train_step = pipeline.make_train_step(net, loss_func, optimizer,
                                               scheduler, args.grad_clip)
-        eval_step = pipeline.make_eval_step(model, loss_func, out_steps=out_steps)
+        eval_step = pipeline.make_eval_step(net, loss_func, out_steps=out_steps)
 
     history = []
     val_l2_min = np.inf
     if not args.eval_only:
         for ep in range(args.epochs):
             t0 = time.perf_counter()
-            model.train()
+            net.train()
             if use_device_data:
                 idx, starts = train_dataset.epoch_indices(args.batch_size, rng)
                 ep_losses = run_epoch(idx, starts).cpu().numpy()
@@ -154,20 +191,24 @@ def main(args=None) -> dict:
                 if vidx.size == 0:
                     raise ValueError(f"val dataset yielded no batches "
                                      f"(n={len(val_dataset)}, batch={args.batch_size})")
-                model.eval()
+                net.eval()
                 val_l2 = float(run_eval(vidx, vstarts))
             else:
                 train_l2, count = 0.0, 0
                 for inp, out in train_dataset.batches(args.batch_size, rng):
-                    a = torch.from_numpy(inp[fs]).to(device)
-                    u = torch.from_numpy(out[fs]).to(device)
+                    a, u = (torch.from_numpy(pipeline.shard_host(x[fs], mesh)).to(device)
+                            for x in (inp, out))
                     train_l2 += float(train_step(a, u))
                     count += 1
-                model.eval()
-                val_l2 = pipeline.eval_epoch(eval_step, val_dataset,
-                                             args.batch_size, device, field=fs)
+                if mesh is not None:
+                    train_l2 = float(pipeline.mean_over_ranks(
+                        torch.tensor(train_l2, dtype=torch.float64, device=device)))
+                net.eval()
+                val_l2 = pipeline.eval_epoch(eval_step, val_dataset, args.batch_size,
+                                             device, field=fs, mesh=mesh)
             if val_l2 < val_l2_min:
-                pipeline.save_checkpoint(model, path_model)
+                if root:
+                    pipeline.save_checkpoint(model, path_model)
                 val_l2_min = val_l2
             seconds = time.perf_counter() - t0
             history.append({"epoch": ep + 1, "train": train_l2 / max(count, 1),
@@ -177,19 +218,21 @@ def main(args=None) -> dict:
                         f"{val_l2:.4e} | {seconds:.1f}s")
         logger.info(f"Training complete. Best model saved to {path_model}.pt")
 
-    test_l2 = None
-    if not args.train_only:
+    test_l2, figures = None, []
+    if root and not args.train_only:
         test_path = _resolve_data(example, "test", args.test_file)
         if not os.path.exists(test_path):
             logger.info(f"No test data at {test_path}; skipping eval phase.")
         else:
-            test_l2 = _eval_phase(args, model, path_model, test_path, device, logger)
+            test_l2, figures = _eval_phase(args, model, path_model, test_path, device,
+                                           logger)
     return {"model": model, "n_params": n_params, "history": history, "test": test_l2,
-            "checkpoint": path_model}
+            "checkpoint": path_model, "demo_plots": figures}
 
 
-def _eval_phase(args, model, path_model, test_path, device, logger) -> float:
-    """High-resolution eval from the best checkpoint (fp64 with --double)."""
+def _eval_phase(args, model, path_model, test_path, device, logger):
+    """High-resolution eval from the best checkpoint (fp64 with --double);
+    returns the test metric and the demo plots written."""
     dtype = torch.float64 if args.double else torch.float32
     test_dataset = SpatioTemporalDataset(
         data_path=test_path, n_samples=args.num_test_samples, fields=[args.field],
@@ -208,7 +251,35 @@ def _eval_phase(args, model, path_model, test_path, device, logger) -> float:
                                   device, field=args.field)
     logger.info(f"Test rel Sobolev metric at {args.test_res}x{args.test_res}: "
                 f"{test_l2:.4e}")
-    return test_l2
+    figures = []
+    if args.demo_plots:
+        figures = _save_demo_plots(model, test_dataset, args, device, dtype, logger)
+    return test_l2, figures
+
+
+@torch.no_grad()
+def _save_demo_plots(model, dataset, args, device, dtype, logger) -> list:
+    """Predicted and true contour trajectories of the first ``--demo-plots``
+    test samples (the reference's train.py:254-275). The predictions come
+    first; then each figure, or one line where matplotlib is missing."""
+    n, fs = args.test_res, args.field
+    inp, out = dataset.sample(np.arange(min(args.demo_plots, len(dataset))))
+    pred = model(torch.from_numpy(inp[fs]).to(device=device, dtype=dtype),
+                 out_steps=args.out_time_steps).cpu().numpy()
+    truth = out[fs]
+    figures = []
+    for i in range(pred.shape[0]):
+        for name, traj in (("pred", pred[i]), ("true", truth[i])):
+            # channels-last (x, y, t) -> (t, x, y) frames for the facet plot
+            frames = np.moveaxis(traj, -1, 0)
+            path = os.path.join(pipeline.FIG_PATH,
+                                f"{args.example}_{n}x{n}_sample{i}_{name}.png")
+            if viz.save_figure(lambda f=frames: viz.plot_contour_trajectory(f),
+                               path) is None:
+                return figures
+            logger.info(f"demo plot: {path}")
+            figures.append(path)
+    return figures
 
 
 def get_parser() -> argparse.ArgumentParser:
