@@ -135,7 +135,24 @@ printing no result, when either is missing or any phase fails:
    whose figures exist where matplotlib is installed;
 16. the utilities on the card: ``profile_to`` around 10 fused rollout
    steps writes a trace holding the 50 ``spectral_advect`` launches;
-   ``timer`` and ``device_memory_summary`` print.
+   ``timer`` and ``device_memory_summary`` print;
+17. main path 11, tensor parallelism at world 1 on NCCL
+   (``tensor_parallel_phase``): the FFN kernel on each rank's hidden units
+   at ``model_parallel`` 2 and 4 (10 → 40/mp → 10 GELU on the recipe's
+   2,621,440 rows and 20 → 80/mp → 20 ReLU on the sweep's 163,840, float32
+   and bfloat16 rows), each shard against its plain version and the shards'
+   sum plus the second bias against the unsharded kernel, with its ms beside
+   its bound and the unsharded time; the DFT pair at the sweep's m=12 on the
+   c_o/mp output planes; the dry run (``python -m
+   tpu_cfd_torch.parallel.dryrun``) in this process and under
+   ``torch.distributed.run``; and two train steps of the recipe's SFNO (b=4)
+   through ``shard_params`` with every shardable leaf on a model axis of one
+   rank, against the same steps unsharded (rtol 1e-5, atol 1e-6), the
+   launches equal to the unsharded steps' by count, and both steps' ms. The
+   dry run's and the train steps' launches are held to exact counts, and the
+   kernel instances they run (the dry run's FFN and DFT pair at 16², m=4,
+   at each of its batches; the recipe's at b=4) against their plain
+   versions.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -251,6 +268,408 @@ def _bound(flops: float, nbytes: float, product: bool = True) -> dict:
             "bound_tf32x3_ms": 1e3 * max(t_tf32, t_bytes) if product else None}
 
 
+def max_err(got, want):
+    """(max |got - want|, max |want|)."""
+    import torch
+
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """ms a call of ``fn`` by CUDA events over ``iters`` calls after ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20, sessions: int = 3):
+    """ms on the device of one launch of the kernel whose name holds
+    ``kernel`` (torch.profiler), for an ``fn`` that launches it once: without
+    the wrapper's host time, which a kernel of a few tens of microseconds
+    timed back to back would show instead. The mean over the launches the
+    traces recorded: late in a run a trace can keep fewer than ``iters``, or
+    none, so up to ``sessions`` traces are taken until one has some. None
+    where none did (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        launches = sum(e.count for e in hits)
+        if launches:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / launches
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def step_profile(fn) -> dict:
+    """torch.profiler over one call of ``fn`` after a warm one: its wall ms,
+    the device's busy ms and launches, the host ms of the collectives' ops
+    and the host ops with the most self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    collective = ("nccl", "c10d", "all_gather", "all_reduce", "allreduce", "allgather",
+                  "record_param_comms")
+    return {"wall_ms": wall,
+            "device_busy_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+            "launches": sum(e.count for e in kern),
+            "collective_host_ms": sum(e.self_cpu_time_total for e in host
+                                      if any(c in e.key.lower() for c in collective)) / 1e3,
+            "top_host_ms": {e.key[:60]: round(e.self_cpu_time_total / 1e3, 3)
+                            for e in host[:6]}}
+
+
+def check(name, got, want):
+    """``got`` against its plain version ``want``: max abs error within
+    ``KERNEL_TOL`` of the largest plain entry. Returns the error."""
+    max_abs, scale = max_err(got, want)
+    print(f"kernel {name}: max abs err {max_abs:.3e} (max |plain| "
+          f"{scale:.3e}, tol {KERNEL_TOL} of it)", flush=True)
+    _require(max_abs <= KERNEL_TOL * scale, f"{name} vs plain")
+    return max_abs
+
+
+def hold_instances(tag, model, forwards, modes, width, latent, dev, gen):
+    """The DFT pair, where ``fused_pair_wins`` sends it, and the FFN at each
+    (batch, n) of ``forwards``, against their plain versions, on inputs drawn
+    from ``gen``. Returns the errors by instance."""
+    import torch
+
+    from tpu_cfd_torch.models.base import PointwiseFFN
+    from tpu_cfd_torch.models.fused_conv import _dft2d_constants, fused_pair_wins
+    from tpu_cfd_torch.ops.cuda import ffn as ffn_ops, spectral_conv as sc
+
+    ffn_mod = next(m for m in model.modules() if isinstance(m, PointwiseFFN))
+    d0, d1 = ffn_mod.dense_0, ffn_mod.dense_1
+    errs = {}
+    for b, n in sorted(set(forwards)):
+        planes = b * latent * width
+        if fused_pair_wins(n, n, modes, modes, planes):
+            cc = _dft2d_constants(n, n, modes, modes, str(dev), "complex64")
+            v = torch.randn(b, latent * width, n, n, device=dev, generator=gen)
+            gg = torch.randn(b, latent * width, 2 * modes, 2 * modes,
+                             dtype=torch.complex64, device=dev, generator=gen)
+            at = f"{tag} {n}^2 m{modes} {planes} planes"
+            errs[f"dft2d_modes {n} {planes}"] = check(
+                f"dft2d_modes {at}", sc.modes(v, cc), sc._modes_plain(v, cc))
+            errs[f"dft2d_inverse {n} {planes}"] = check(
+                f"dft2d_inverse {at}", sc.inverse(gg, 1.0 / (n * n * latent), cc),
+                sc._inverse_plain(gg, 1.0 / (n * n * latent), cc))
+        rows = b * n * n * latent
+        x = torch.randn(rows, d0.in_features, device=dev, generator=gen)
+        w = [torch.randn(*t.shape, device=dev, generator=gen) * a for t, a in (
+            (d0.weight, 0.3), (d0.bias, 0.1), (d1.weight, 0.15), (d1.bias, 0.1))]
+        errs[f"pointwise_ffn {rows}"] = check(
+            f"pointwise_ffn {tag} {rows} rows {d0.in_features}->{d0.out_features}->"
+            f"{d1.out_features} {ffn_mod.activation}",
+            ffn_ops.ffn_forward(x, *w, ffn_mod.activation),
+            ffn_ops._ffn_plain(x, *w, ffn_mod.activation))
+    return errs
+
+
+def expected_sfno(forwards, trains, layers, modes, width, latent):
+    """Launches of an SFNO's kernels over the train steps ``trains`` [(batch,
+    n, steps)] and the forward-only passes ``forwards`` [(batch, n)]: the FFN
+    once a layer a forward; the DFT pair, where its shape takes it, once a
+    SpectralConvS (layers - 1) a forward and once more in a backward."""
+    from tpu_cfd_torch.models.fused_conv import fused_pair_wins
+
+    def pair(b, n):
+        return int(fused_pair_wins(n, n, modes, modes, b * latent * width))
+
+    dft = (layers - 1) * (sum(2 * steps * pair(b, n) for b, n, steps in trains)
+                          + sum(pair(*f) for f in forwards))
+    return {"modes": dft, "inverse": dft, "modes_fused": dft, "inverse_fused": dft,
+            "ffn": layers * (sum(steps for _, _, steps in trains) + len(forwards))}
+
+
+def tensor_parallel_phase(dev) -> dict:
+    """17. Main path 11, tensor parallelism on the card, at world 1 on NCCL
+    (the machine has one card; a model axis of more ranks runs on gloo, in
+    ``tests/test_torch_tensor_parallel.py``). First the kernels at the shard
+    shapes that ``model_parallel`` 2 and 4 give them, held against their plain
+    versions (these launches are comparisons, not the path's); then the path:
+    the dry run (``parallel/dryrun.py``) in this process, and two train steps
+    of the recipe's SFNO through ``shard_params`` with every shardable leaf
+    placed on a model axis of one rank (so every layer runs its
+    collectives), held against the same model unsharded; last the dry run
+    under ``torch.distributed.run``. The path's launches are held to exact
+    counts and its kernel instances against their plain versions. Returns
+    the phase's row and the path's launches."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_cfd_torch import parallel
+    from tpu_cfd_torch.models import SFNO, init_like_flax
+    from tpu_cfd_torch.models.fused_conv import _dft2d_constants, fused_pair_wins
+    from tpu_cfd_torch.ops.cuda import ffn as ffn_ops, spectral_conv as sc
+    from tpu_cfd_torch.ops.cuda import spectral_step as ss
+    from tpu_cfd_torch.parallel import dryrun
+    from tpu_cfd_torch.parallel.launch import _free_port
+    from tpu_cfd_torch.train import losses
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n, nt = RECIPE["n"], RECIPE["nt"]
+    row = {"ffn_shards": [], "dft_shards": []}
+
+    # -- 17a. the FFN kernel on each rank's hidden units (Megatron's split) --
+    for shape, (b, width, act) in {"recipe": (RECIPE["b"], RECIPE["width"], "GELU"),
+                                   "sweep": (SWEEP_BATCH, SWEEP["width"], "ReLU")}.items():
+        rows, hidden = b * n * n * nt, 4 * width
+        x = torch.randn(rows, width, device=dev, generator=gen)
+        w1, b1, w2, b2 = (torch.randn(*sh, device=dev, generator=gen) * a for sh, a in (
+            ((hidden, width), 0.3), ((hidden,), 0.1), ((width, hidden), 0.15),
+            ((width,), 0.1)))
+        zero = torch.zeros(width, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xr, tol = x.to(dtype), KERNEL_TOL if dtype == torch.float32 else BF16_TOL
+            elem = xr.element_size()
+            unsharded_ms = cuda_ms(lambda: ffn_ops.ffn_forward(xr, w1, b1, w2, b2, act), 20)
+            unsharded_dev = device_ms(lambda: ffn_ops.ffn_forward(xr, w1, b1, w2, b2, act),
+                                      "ffn_kernel")
+            for mp in (2, 4):
+                h = hidden // mp
+                shards = [(w1[r * h:(r + 1) * h].contiguous(), b1[r * h:(r + 1) * h].contiguous(),
+                           w2[:, r * h:(r + 1) * h].contiguous()) for r in range(mp)]
+                ffn_ops.reset_launch_counts()
+                full = ffn_ops.ffn_forward(xr, w1, b1, w2, b2, act).float()
+                parts, err = [], 0.0
+                for s1, s2, s3 in shards:
+                    got = ffn_ops.ffn_forward(xr, s1, s2, s3, zero, act).float()
+                    e, scale = max_err(got, ffn_ops._ffn_plain(xr, s1, s2, s3, zero, act).float())
+                    _require(e <= tol * scale, f"pointwise_ffn {shape} {dtype} shard of "
+                             f"{mp}: {e} > {tol} x {scale}")
+                    parts.append(got)
+                    err = max(err, e)
+                launched = ffn_ops.LAUNCHES["ffn"]
+                _require(launched == 1 + mp, f"pointwise_ffn launched {launched} times for "
+                         f"{mp} shards and the unsharded call, expected {1 + mp}")
+                total = torch.stack(parts).sum(0) + b2
+                e_sum, f_scale = max_err(total, full)
+                # fp32: a sum in another order; bf16: each shard and the whole
+                # round once to bf16, half a spacing (2^-8) of what they round
+                sum_tol = (KERNEL_TOL * f_scale if dtype == torch.float32 else 2.0 ** -8 * (
+                    sum(float(q.abs().max()) for q in parts) + f_scale))
+                _require(e_sum <= sum_tol, f"pointwise_ffn {shape} {dtype}: the {mp} shards' "
+                         f"sum + b2 against the unsharded kernel, {e_sum} > {sum_tol}")
+                s1, s2, s3 = shards[0]
+                nbytes = rows * 2 * width * elem + 4 * (2 * h * width + h + width)
+                bound = _bound(ffn_ops.flops(rows, width, h, width), nbytes)
+                ms = cuda_ms(lambda: ffn_ops.ffn_forward(xr, s1, s2, s3, zero, act), 20)
+                dev_ms = device_ms(lambda: ffn_ops.ffn_forward(xr, s1, s2, s3, zero, act),
+                                   "ffn_kernel")
+                plain_ms = cuda_ms(lambda: ffn_ops._ffn_plain(xr, s1, s2, s3, zero, act), 5)
+                r_ = {"shape": shape, "rows": rows, "dtype": str(dtype).split(".")[-1],
+                      "model_parallel": mp, "k": width, "hidden": h, "act": act,
+                      "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "unsharded_ms": unsharded_ms, "unsharded_device_ms": unsharded_dev,
+                      "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                      "max_abs_err": err, "sum_err": e_sum, "sum_tol": sum_tol}
+                row["ffn_shards"].append(r_)
+                print(f"phase 17: pointwise_ffn {shape} {r_['dtype']} {rows} rows "
+                      f"{width}->{h}->{width} {act} (1 of {mp} shards): {ms:.4f} ms, device "
+                      f"{fmt_ms(dev_ms)}, bound {bound['bound_ms']:.4f} ({bound['bound_by']}), "
+                      f"plain {plain_ms:.4f}, unsharded {unsharded_ms:.4f} (device "
+                      f"{fmt_ms(unsharded_dev)}); shard err {err:.3e}, sum + b2 vs "
+                      f"unsharded {e_sum:.3e} (tol {sum_tol:.3e})", flush=True)
+
+    # -- 17b. the DFT pair at the sweep's m=12: all c_i planes in, c_o/mp out --
+    sm, sw, b = SWEEP["modes_x"], SWEEP["width"], SWEEP_BATCH
+    cc = _dft2d_constants(n, n, sm, sm, str(dev), "complex64")
+    scale = 1.0 / (n * n * nt)
+    v = torch.randn(b, nt * sw, n, n, device=dev, generator=gen)
+    for mp in (2, 4):
+        planes = nt * sw // mp
+        g = torch.randn(b, planes, 2 * sm, 2 * sm, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        _require(fused_pair_wins(n, n, sm, sm, b * nt * sw), "the sweep's pair is fused")
+        sc.reset_launch_counts()
+        e_m, s_m = max_err(sc.modes(v, cc), sc._modes_plain(v, cc))
+        e_i, s_i = max_err(sc.inverse(g, scale, cc), sc._inverse_plain(g, scale, cc))
+        counts = dict(sc.LAUNCHES)
+        _require(e_m <= KERNEL_TOL * s_m and e_i <= KERNEL_TOL * s_i,
+                 f"dft2d pair at c_o/{mp}: {e_m}, {e_i}")
+        _require(counts == {"modes": 1, "modes_fused": 1, "inverse": 1, "inverse_fused": 1},
+                 f"dft2d pair at c_o/{mp}: launches {counts}")
+        nbytes = b * planes * (n * n * 4 + 4 * sm * sm * 8)
+        bound = _bound(sc.flops(b * planes, n, n, 2 * sm, 2 * sm), nbytes)
+        ms = cuda_ms(lambda: sc.inverse(g, scale, cc), 20)
+        dev_ms = device_ms(lambda: sc.inverse(g, scale, cc), "inverse_fused")
+        plain_ms = cuda_ms(lambda: sc._inverse_plain(g, scale, cc), 5)
+        r_ = {"model_parallel": mp, "planes": b * planes, "m": sm, "inverse_ms": ms,
+              "inverse_device_ms": dev_ms,
+              "inverse_plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+              "bound_by": bound["bound_by"], "modes_err": e_m, "inverse_err": e_i}
+        row["dft_shards"].append(r_)
+        print(f"phase 17: dft2d_inverse at the sweep's m={sm} on {b * planes} planes "
+              f"(c_o/{mp}): {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound {bound['bound_ms']:.4f} "
+              f"({bound['bound_by']}), plain {plain_ms:.4f}; errors modes {e_m:.3e} "
+              f"inverse {e_i:.3e}", flush=True)
+
+    # -- 17c. main path 11 at world 1 on NCCL -------------------------------
+    rw, rm = RECIPE["width"], RECIPE["modes"]
+    b = 4  # the recipe's own batch (train.py's default)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        ref = init_like_flax(SFNO(modes_x=rm, modes_y=rm, modes_t=RECIPE["modes_t"], width=rw,
+                                  num_spectral_layers=RECIPE["layers"], output_steps=nt,
+                                  activation="GELU", beta=0.0),
+                             torch.Generator().manual_seed(0)).to(dev)
+        tp = copy.deepcopy(ref)
+        v = torch.randn(b, n, n, nt, device=dev, generator=gen)
+        y = torch.randn(b, n, n, nt, device=dev, generator=gen)
+        loss_obj = losses.SobolevLoss(n_grid=n, norm_order=-1, relative=True)
+
+        def step(model, opt, sharded):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_obj(model(v), y)
+            loss.backward()
+            if sharded:
+                parallel.average_gradients(model.parameters(), mesh)
+            opt.step()
+            return float(loss.detach())
+
+        counters = (ss, sc, ffn_ops)
+
+        def counts():
+            out = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+            for mod in counters:
+                mod.reset_launch_counts()
+            return out
+
+        counts()
+        dry = dryrun.run(dev, log=lambda line: print(f"phase 17: {line}", flush=True))
+        dry_launches = counts()
+        parallel.shard_params(tp, mesh, spec_fn=lambda k, p, m: parallel.sfno_layout(k, p, 1))
+        opt_tp = torch.optim.Adam(tp.parameters(), lr=1e-3)
+        tp_losses = [step(tp, opt_tp, True) for _ in range(2)]
+        torch.cuda.synchronize()
+        tp_launches = counts()
+        opt_ref = torch.optim.Adam(ref.parameters(), lr=1e-3)
+        ref_losses = [step(ref, opt_ref, False) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref_launches = counts()
+        got = parallel.gather_parameters(tp)
+        worst = 0.0
+        for k, p in ref.named_parameters():
+            _require(bool(torch.allclose(got[k], p.detach(), rtol=1e-5, atol=1e-6)),
+                     f"tensor-parallel step: parameter {k} differs from the unsharded step")
+            worst = max(worst, float((got[k] - p.detach()).abs().max()))
+        for a, b_ in zip(tp_losses, ref_losses):
+            _require(abs(a - b_) <= 1e-5 * abs(b_), f"tensor-parallel loss {a} against {b_}")
+        # every sharded layer on its kernel, as unsharded: the FFN once a
+        # layer a step, the DFT pair where fused_pair_wins names the rank's
+        # planes (forward and backward)
+        tp_want = expected_sfno([], [(b, n, 2)], RECIPE["layers"], rm, rw, nt)
+        _require(tp_launches == ref_launches
+                 and {k: tp_launches[k] for k in tp_want} == tp_want,
+                 f"tensor-parallel step launches {tp_launches} against {ref_launches}, "
+                 f"expected {tp_want}")
+        # the dry run's SFNO (2 layers, modes 4, width 8, latent 4 at 16^2):
+        # train_step, one step of the unsharded model at the batch 2 x data
+        # and one of the sharded model at a data rank's 2; epoch, 2 steps of
+        # the single trainer at the batch data and 2 of DDP at a rank's 1;
+        # finetune, one forward at 2 x data; and the fused rollout, 2 steps
+        # of 5 stages
+        n_data, ng = dry["mesh"]["data"], dryrun.N_GRID
+        dry_shapes = {"forwards": [(2 * n_data, ng)],
+                      "trains": [(2 * n_data, ng, 1), (2, ng, 1), (n_data, ng, 2),
+                                 (1, ng, 2)]}
+        dry_want = {**expected_sfno(dry_shapes["forwards"], dry_shapes["trains"], 2, 4,
+                                    dryrun.WIDTH, dryrun.T_WIN),
+                    "inverse_first": 2 * 5, "advect": 2 * 5, "forward_first": 2 * 5}
+        _require(dry_launches == dry_want,
+                 f"the dry run's launches {dry_launches}, expected {dry_want}")
+        # the path's own kernel instances against their plain versions: the
+        # dry run's SFNO at its two batches, the recipe's at b=4
+        held = {"dryrun": hold_instances(
+                    "dry run", dryrun._sfno(dev, latent_steps=dryrun.T_WIN),
+                    [*dry_shapes["forwards"], *(t[:2] for t in dry_shapes["trains"])], 4,
+                    dryrun.WIDTH, dryrun.T_WIN, dev, gen),
+                "recipe_b4": hold_instances("tensor-parallel recipe", ref, [(b, n)], rm, rw,
+                                            nt, dev, gen)}
+        sharded = sorted(k for k, pl in tp.tp_placements.items()
+                         if type(pl).__name__ == "Shard")
+        ms_tp = cuda_ms(lambda: step(tp, opt_tp, True), 5)
+        ms_ref = cuda_ms(lambda: step(ref, opt_ref, False), 5)
+        profiles = {tag: step_profile(lambda: step(m_, o_, sh))
+                    for tag, m_, o_, sh in (("tensor_parallel", tp, opt_tp, True),
+                                            ("unsharded", ref, opt_ref, False))}
+        for tag, pr in profiles.items():
+            print(f"phase 17: profile of a {tag} step: {pr['wall_ms']:.3f} ms, device busy "
+                  f"{pr['device_busy_ms']:.3f} ms, {pr['launches']} launches; collectives' "
+                  f"host time {pr['collective_host_ms']:.3f} ms; top host ops "
+                  f"{pr['top_host_ms']}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    launches = {k: dry_launches[k] + tp_launches.get(k, 0) for k in dry_launches}
+    row.update(dryrun_in_process=dry, tp_step_ms=ms_tp, unsharded_step_ms=ms_ref,
+               tp_params_max_diff=worst, tp_losses=tp_losses, unsharded_losses=ref_losses,
+               sharded_leaves=len(sharded), launches_dryrun=dry_launches, profiles=profiles,
+               launches_tp_steps=tp_launches, expected_launches_dryrun=dry_want,
+               expected_launches_tp_steps=tp_want, kernel_vs_plain=held)
+    print(f"phase 17: the recipe's SFNO (b{b}) through shard_params at world 1 on NCCL, "
+          f"{len(sharded)} of {len(tp.tp_placements)} leaves placed Shard on a model axis of "
+          f"one rank: {ms_tp:.3f} ms a step against {ms_ref:.3f} unsharded; two steps' "
+          f"parameters within {worst:.3e} of the unsharded steps', losses {tp_losses} / "
+          f"{ref_losses}; launches {tp_launches}", flush=True)
+
+    # -- 17d. the dry run as a user starts it, under torch.distributed.run ---
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "tpu_cfd_torch.parallel.dryrun"],
+                          capture_output=True, text=True, timeout=420,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    row["dryrun_torchrun_s"] = time.perf_counter() - t0
+    if done.returncode != 0:
+        print(done.stdout[-3000:], done.stderr[-3000:], sep="\n", file=sys.stderr)
+    _require(done.returncode == 0, f"the dry run under torch.distributed.run exited with "
+             f"{done.returncode}")
+    row["dryrun_torchrun"] = json.loads(done.stdout.strip().splitlines()[-1])["dryrun"]
+    print(f"phase 17: the dry run under torch.distributed.run: "
+          f"{row['dryrun_torchrun']['legs_ms']} ms by leg, "
+          f"{row['dryrun_torchrun_s']:.2f} s with process start", flush=True)
+    return {"row": row, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -301,38 +720,6 @@ def main() -> int:
 
     def rel(a, b) -> float:
         return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-
-    def max_err(got, want):
-        got, want = torch.as_tensor(got), torch.as_tensor(want)
-        return float((got - want).abs().max()), float(want.abs().max())
-
-    def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / iters
-
-    def device_ms(fn, kernel: str, iters: int = 20) -> float:
-        """ms a call on the device of the kernels whose name holds ``kernel``
-        (torch.profiler): without the wrapper's host time, which a kernel of
-        a few tens of microseconds timed back to back would show instead."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if kernel in e.key) / 1e3 / iters
 
     # -- 3a. whole rollouts: kernel vs plain, both layouts ------------------
     what4 = initial_spectrum(4)
@@ -463,13 +850,6 @@ def main() -> int:
         g = torch.randn(b, rt * ch, 2 * m, 2 * m, dtype=torch.complex64,
                         device=dev, generator=gen)
         return cc, v, g, 1.0 / (n * n * rt)
-
-    def check(name, got, want):
-        max_abs, scale = max_err(got, want)
-        print(f"kernel {name}: max abs err {max_abs:.3e} (max |plain| "
-              f"{scale:.3e}, tol {KERNEL_TOL} of it)", flush=True)
-        _require(max_abs <= KERNEL_TOL * scale, f"{name} vs plain")
-        return max_abs
 
     def grads(fn, inputs, cot):
         xs = [x.detach().clone().requires_grad_(True) for x in inputs]
@@ -866,7 +1246,7 @@ def main() -> int:
             "device_ms": device_ms(kern, "ffn_kernel"),
             "plain_ms": cuda_ms(plain, 20), **_bound(flops, nbytes)}
         print(f"time pointwise_ffn {name}: {ffn_other[name]['ms']:.4f} ms (device "
-              f"{ffn_other[name]['device_ms']:.4f}), plain "
+              f"{fmt_ms(ffn_other[name]['device_ms'])}), plain "
               f"{ffn_other[name]['plain_ms']:.4f} ms, bound "
               f"{ffn_other[name]['bound_ms']:.4f} ms ({ffn_other[name]['bound_by']})",
               flush=True)
@@ -925,7 +1305,7 @@ def main() -> int:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         tf = "" if r.get("bound_tf32x3_ms") is None else (
             f"; FFMA {r['bound_ffma_ms']:.4f}, 3xTF32 {r['bound_tf32x3_ms']:.4f}")
-        dev_ms = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
+        dev_ms = f" (device {fmt_ms(r['device_ms'])})" if "device_ms" in r else ""
         print(f"time {name}: {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}{tf})",
               flush=True)
@@ -1782,50 +2162,6 @@ def main() -> int:
     from tpu_cfd_torch.examples import (check_sfno_shapes, ex1_kolmogorov_simulation,
                                         ex2_sfno_5ep_spectra)
 
-    def hold_instances(tag, model, forwards, modes, width, latent):
-        """The DFT pair, where ``fused_pair_wins`` sends it, and the FFN at
-        each (batch, n) of ``forwards``, against their plain versions."""
-        ffn_mod = next(m for m in model.modules() if isinstance(m, sfno_mod.PointwiseFFN))
-        d0, d1 = ffn_mod.dense_0, ffn_mod.dense_1
-        errs = {}
-        for b, n in sorted(set(forwards)):
-            planes = b * latent * width
-            if fused_pair_wins(n, n, modes, modes, planes):
-                cc = _dft2d_constants(n, n, modes, modes, str(dev), "complex64")
-                v = torch.randn(b, latent * width, n, n, device=dev, generator=gen)
-                gg = torch.randn(b, latent * width, 2 * modes, 2 * modes,
-                                 dtype=torch.complex64, device=dev, generator=gen)
-                at = f"{tag} {n}^2 m{modes} {planes} planes"
-                errs[f"dft2d_modes {n} {planes}"] = check(
-                    f"dft2d_modes {at}", sc.modes(v, cc), sc._modes_plain(v, cc))
-                errs[f"dft2d_inverse {n} {planes}"] = check(
-                    f"dft2d_inverse {at}", sc.inverse(gg, 1.0 / (n * n * latent), cc),
-                    sc._inverse_plain(gg, 1.0 / (n * n * latent), cc))
-            rows = b * n * n * latent
-            x = torch.randn(rows, d0.in_features, device=dev, generator=gen)
-            w = [torch.randn(*t.shape, device=dev, generator=gen) * a for t, a in (
-                (d0.weight, 0.3), (d0.bias, 0.1), (d1.weight, 0.15), (d1.bias, 0.1))]
-            errs[f"pointwise_ffn {rows}"] = check(
-                f"pointwise_ffn {tag} {rows} rows {d0.in_features}->{d0.out_features}->"
-                f"{d1.out_features} {ffn_mod.activation}",
-                ffn_ops.ffn_forward(x, *w, ffn_mod.activation),
-                ffn_ops._ffn_plain(x, *w, ffn_mod.activation))
-        return errs
-
-    def expected_sfno(forwards, train, layers, modes, width, latent):
-        """Launches of an SFNO's kernels over the train steps ``train`` =
-        (batch, n, steps) and the forward-only passes ``forwards`` [(batch,
-        n)]: the FFN once a layer a forward; the DFT pair, where its shape
-        takes it, once a SpectralConvS (layers - 1) a forward and once more in
-        a backward."""
-        def pair(b, n):
-            return int(fused_pair_wins(n, n, modes, modes, b * latent * width))
-
-        b, n, steps = train
-        dft = (layers - 1) * (2 * steps * pair(b, n) + sum(pair(*f) for f in forwards))
-        return {"modes": dft, "inverse": dft, "modes_fused": dft, "inverse_fused": dft,
-                "ffn": layers * (steps + len(forwards))}
-
     ex_rows = {}
     for mod in kernel_modules:
         mod.reset_launch_counts()
@@ -1849,7 +2185,7 @@ def main() -> int:
     torch.cuda.synchronize()
     shp_launches = launch_counts()
     shp_model = check_sfno_shapes.build()
-    shp_want = expected_sfno(shp["forwards"], (1, rn, 0), 4, 16, 20, 10)
+    shp_want = expected_sfno(shp["forwards"], [], 4, 16, 20, 10)
     ex_rows["check_sfno_shapes"] = {
         "n_params": shp["n_params"], "shapes": {str(k): v for k, v in shp["shapes"].items()},
         "latents": shp["latents"], "ms_per_forward": shp["ms_per_forward"],
@@ -1864,7 +2200,7 @@ def main() -> int:
     _require({k: shp_launches[k] for k in shp_want} == shp_want,
              f"check_sfno_shapes launches {shp_launches}, expected {shp_want}")
     ex_rows["check_sfno_shapes"]["kernel_vs_plain"] = hold_instances(
-        "check_sfno_shapes", shp_model, shp["forwards"], 16, 20, 10)
+        "check_sfno_shapes", shp_model, shp["forwards"], 16, 20, 10, dev, gen)
 
     ex_argv = ["--data-file", data_path, "--num-samples", "64", "--num-val-samples", "64",
                "--out", os.path.join(tmp, "spectra.png")]
@@ -1877,7 +2213,7 @@ def main() -> int:
     spec_model = SFNO(modes_x=32, modes_y=32, modes_t=5, width=10, beta=-1e-2,
                       output_steps=10)
     # the train steps at batch 4, then one prediction of 8 held-out samples
-    spec_want = expected_sfno([(8, rn)], (4, rn, spec["train_steps"]), 4, 32, 10, 10)
+    spec_want = expected_sfno([(8, rn)], [(4, rn, spec["train_steps"])], 4, 32, 10, 10)
     ex_rows["sfno_5ep_spectra"] = {
         "seconds": time.perf_counter() - t0, "gap": spec["gap"], "history": spec["history"],
         "train_steps": spec["train_steps"], "launches": spec_launches,
@@ -1891,7 +2227,7 @@ def main() -> int:
     _require({k: spec_launches[k] for k in spec_want} == spec_want,
              f"ex2_sfno_5ep_spectra launches {spec_launches}, expected {spec_want}")
     ex_rows["sfno_5ep_spectra"]["kernel_vs_plain"] = hold_instances(
-        "ex2_sfno_5ep_spectra", spec_model, [(4, rn), (8, rn)], 32, 10, 10)
+        "ex2_sfno_5ep_spectra", spec_model, [(4, rn), (8, rn)], 32, 10, 10, dev, gen)
 
     # --demo-plots: the eval phase at 256^2 in fp64 on the test set of phase 12
     t0 = time.perf_counter()
@@ -1947,6 +2283,10 @@ def main() -> int:
              "the trace holds spectral_advect launches and the annotation")
     tmp_ctx.cleanup()
 
+    # -- 17. main path 11: tensor parallelism at world 1 on NCCL -------------
+    p17 = tensor_parallel_phase(dev)
+    tp_launches = p17["launches"]
+
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
                "spectral_advect": ("spectral_step", "advect"),
                "spectral_forward_first": ("spectral_step", "forward_first"),
@@ -1988,16 +2328,21 @@ def main() -> int:
     # m=32 (the examples' shapes) and the FFN, whose launches join the rows
     # of the recipe's shapes
     ex_launches = {k: shp_launches[k] + spec_launches[k] for k in shp_launches}
+    # main path 11 (phase 17) runs row 2's kernels (the dry run's aligned
+    # rollout), the DFT pair (its 16^2 SFNO and the recipe's at b=4, where
+    # fused_pair_wins names the pair) and the FFN, whose launches join the
+    # rows of the recipe's shapes
     launches = {**{("spectral_step", k): v + kol_launches[k] + demo_launches[k]
-                   + dp_gen_launches[k] for k, v in gen_launches.items()},
+                   + dp_gen_launches[k] + tp_launches[k] for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v + sweep_launches[k] + dp_train_launches[k]
-                   + ex_launches[k] for k, v in train_launches.items() if k in sc.LAUNCHES},
+                   + ex_launches[k] + tp_launches[k]
+                   for k, v in train_launches.items() if k in sc.LAUNCHES},
                 ("spectral_conv", "modes_fused_sweep"):
                     sweep_launches["modes_fused"] + demo_launches["modes_fused"],
                 ("spectral_conv", "inverse_fused_sweep"):
                     sweep_launches["inverse_fused"] + demo_launches["inverse_fused"],
                 ("ffn", "ffn"): train_launches["ffn"] + demo_launches["ffn"]
-                + dp_train_launches["ffn"] + ex_launches["ffn"],
+                + dp_train_launches["ffn"] + ex_launches["ffn"] + tp_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
                 ("adam", "adam"): sweep_launches["adam"]}
@@ -2011,16 +2356,19 @@ def main() -> int:
          "shape": shapes.get(name, shapes.get(src)),
          **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
          **({"launches_by_path": {"2": train_launches[key], "3": sweep_launches[key],
-                                  "9": dp_train_launches[key], "10": ex_launches[key]}}
+                                  "9": dp_train_launches[key], "10": ex_launches[key],
+                                  "11": tp_launches[key]}}
             if name in ("dft2d_modes", "dft2d_inverse") else {}),
          **({"launches_by_path": {"3": sweep_launches[key[:-len("_sweep")]],
                                   "8": demo_launches[key[:-len("_sweep")]]}}
             if name in ("dft2d_modes_sweep", "dft2d_inverse_sweep") else {}),
          **({"launches_by_path": {"2": train_launches["ffn"], "8": demo_launches["ffn"],
-                                  "9": dp_train_launches["ffn"], "10": ex_launches["ffn"]}}
+                                  "9": dp_train_launches["ffn"], "10": ex_launches["ffn"],
+                                  "11": tp_launches["ffn"]}}
             if name == "pointwise_ffn" else {}),
          **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key],
-                                  "8": demo_launches[key], "9": dp_gen_launches[key]}}
+                                  "8": demo_launches[key], "9": dp_gen_launches[key],
+                                  "11": tp_launches[key]}}
             if src == "spectral_step" else {})}
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
@@ -2042,7 +2390,8 @@ def main() -> int:
                              "full_dataset_hours": full_h}},
         "finetune_main_path_7": ft_row, "demo_main_path_8": demo_row, "fvm_phase_13": fvm_rows,
         "data_parallel_main_path_9": dp_rows, "examples_main_path_10": ex_rows,
-        "utilities_phase_16": util_row, "card": card}
+        "utilities_phase_16": util_row, "tensor_parallel_main_path_11": p17["row"],
+        "card": card}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -366,3 +366,86 @@ def test_kernels_launch_on_their_tensors_card():
         torch.cuda.synchronize(d1)
         assert T.device == d1 and torch.cuda.current_device() == 0
         assert _rel_err(T, ss._advect_plain(A, c)) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model_parallel", [2, 4])
+@pytest.mark.parametrize("k,h,act", [(10, 40, "GELU"), (20, 80, "ReLU")])
+def test_ffn_kernel_on_megatron_shards(dev, k, h, act, model_parallel, dtype):
+    """The FFN kernel on each rank's hidden units, as ``parallel.shard_params``
+    splits a PointwiseFFN (the recipe's and the sweep's widths): each shard
+    within 1e-5 (bf16 rows: 2^-7) of its plain version's largest entry, and
+    the shards' sum plus the second bias within 1e-5 of the unsharded
+    kernel's (bf16: half a spacing, 2^-8, of each of the mp + 1 values that
+    round)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4099, k, device=dev, generator=gen).to(dtype)
+    w1, b1, w2, b2 = (torch.randn(*s, device=dev, generator=gen) * a for s, a in (
+        ((h, k), 0.3), ((h,), 0.1), ((k, h), 0.15), ((k,), 0.1)))
+    zero, hs = torch.zeros(k, device=dev), h // model_parallel
+    tffn.reset_launch_counts()
+    full = tffn.ffn_forward(x, w1, b1, w2, b2, act).float()
+    parts = []
+    for r in range(model_parallel):
+        cols = slice(r * hs, (r + 1) * hs)
+        shard = (w1[cols].contiguous(), b1[cols].contiguous(), w2[:, cols].contiguous())
+        got = tffn.ffn_forward(x, *shard[:2], shard[2], zero, act).float()
+        want = tffn._ffn_plain(x, *shard[:2], shard[2], zero, act).float()
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        assert _rel_err(got, want) <= tol
+        parts.append(got)
+    assert tffn.LAUNCHES["ffn"] == 1 + model_parallel
+    total = torch.stack(parts).sum(0) + b2
+    err = float((total - full).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * float(full.abs().max())
+    else:
+        assert err <= 2.0 ** -8 * (sum(float(p.abs().max()) for p in parts)
+                                   + float(total.abs().max()) + float(full.abs().max()))
+
+
+def test_tensor_parallel_sfno_at_world_1_on_nccl(dev, tmp_path):
+    """A small SFNO through ``shard_params`` with every shardable leaf on a
+    model axis of one rank (NCCL): the collectives run, each sharded layer
+    launches its kernels as the unsharded model does, and two train steps
+    match the unsharded ones (rtol 1e-5, atol 1e-6); then the dry run."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tpu_cfd_torch import parallel
+    from tpu_cfd_torch.parallel import dryrun
+    from tpu_cfd_torch.train import losses
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        ref = tm.init_like_flax(tm.SFNO(modes_x=8, modes_y=8, modes_t=3, width=8,
+                                        num_spectral_layers=3, activation="GELU"),
+                                torch.Generator().manual_seed(0)).to(dev)
+        tp = parallel.shard_params(copy.deepcopy(ref), mesh,
+                                   spec_fn=lambda k, p, m: parallel.sfno_layout(k, p, 1))
+        gen = torch.Generator(device=dev).manual_seed(6)
+        v, y = (torch.randn(2, 32, 32, 10, device=dev, generator=gen) for _ in range(2))
+        loss_obj = losses.SobolevLoss(n_grid=32, norm_order=-1, relative=True)
+        counts = []
+        for model in (tp, ref):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            sc.reset_launch_counts()
+            tffn.reset_launch_counts()
+            for _ in range(2):
+                opt.zero_grad()
+                loss_obj(model(v), y).backward()
+                parallel.average_gradients(model.parameters(), mesh)
+                opt.step()
+            counts.append({**sc.LAUNCHES, **tffn.LAUNCHES})
+        assert counts[0] == counts[1] and counts[0]["ffn"] == 6 and counts[0]["modes_fused"]
+        got = parallel.gather_parameters(tp)
+        for k, p in ref.named_parameters():
+            torch.testing.assert_close(got[k], p.detach(), rtol=1e-5, atol=1e-6, msg=k)
+        out = dryrun.run(dev, log=lambda line: None)
+        assert out["mesh"] == {"data": 1, "model": 1} and "fused_rollout" in out["legs_ms"]
+    finally:
+        dist.destroy_process_group()

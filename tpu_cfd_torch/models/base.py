@@ -62,10 +62,16 @@ def as_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
 
 def dense(layer: nn.Linear, v: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
     """``layer(v)`` computed in ``dtype``, as flax's ``nn.Dense(dtype=...)``:
-    the input, the weight and the bias are cast at the call."""
+    the input, the weight and the bias are cast at the call. A layer with
+    hooks (``parallel.shard_params`` gathers a sharded layer's output in one)
+    is called as a module on the cast parameters, so that they run."""
     if dtype is None:
         return layer(v)
-    return F.linear(v.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    weight, bias = layer.weight.to(dtype), layer.bias.to(dtype)
+    if layer._forward_hooks or layer._forward_pre_hooks:
+        return torch.func.functional_call(layer, {"weight": weight, "bias": bias},
+                                          (v.to(dtype),))
+    return F.linear(v.to(dtype), weight, bias)
 
 
 def remat_block(module: nn.Module, v: Tensor, remat: bool) -> Tensor:
@@ -101,8 +107,14 @@ class PointwiseFFN(nn.Module):
     version on the CPU), which keeps the weights and every sum in float32;
     float64 runs the same arithmetic as plain PyTorch, as no fp64 kernel
     exists. ``dtype`` is the computation dtype the input is cast to first
-    (None: the input's own).
+    (None: the input's own). ``reduce``, where ``parallel.shard_params`` sets
+    it, sums the partial outputs of a model group's hidden units (Megatron's
+    MLP): the layer then computes without its second bias, and the sum and
+    the bias are taken in float32 (float64 rows: float64) before one cast to
+    the rows' type.
     """
+
+    reduce: Optional[Callable[[Tensor], Tensor]] = None
 
     def __init__(self, in_channels: int, out_channels: int, mid_channels: int,
                  activation: str = "ReLU", dtype: Optional[torch.dtype] = None):
@@ -117,11 +129,17 @@ class PointwiseFFN(nn.Module):
         d0, d1 = self.dense_0, self.dense_1
         if self.dtype is not None:
             v = v.to(self.dtype)
+        b2 = d1.bias if self.reduce is None else torch.zeros_like(d1.bias)
         if v.dtype in ffn_ops.ROW_DTYPES:
-            return ffn_ops.pointwise_ffn(
+            out = ffn_ops.pointwise_ffn(
                 v, d0.weight.float(), d0.bias.float(), d1.weight.float(),
-                d1.bias.float(), self.activation)
-        return d1(get_activation(self.activation)(d0(v)))
+                b2.float(), self.activation)
+        else:
+            out = F.linear(get_activation(self.activation)(d0(v)), d1.weight, b2)
+        if self.reduce is None:
+            return out
+        total = self.reduce(out.to(torch.promote_types(out.dtype, torch.float32)))
+        return (total + d1.bias.to(total.dtype)).to(out.dtype)
 
 
 @functools.lru_cache(maxsize=None)

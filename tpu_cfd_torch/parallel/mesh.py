@@ -6,35 +6,40 @@ process a card (``parallel.launch``) and each process holds its share: a
 ``DeviceMesh`` named ``("data", "model")`` over the process group (NCCL on
 the card, gloo on the CPU), the rank's slice of each batch
 (``shard_batch``), parameters broadcast from rank 0 (``replicate``) and
-results gathered to rank 0 (``gather_batch``). The gradient all-reduce is
-``DistributedDataParallel``'s.
+results gathered to rank 0 (``gather_batch``). The CLIs' gradient
+all-reduce is ``DistributedDataParallel``'s; ``average_gradients`` is the
+explicit one of a model whose parameters are sharded on ``model``.
 
-Tensor parallelism (``model_parallel > 1``, ``sfno_param_spec``,
-``shard_params``) and ``shard_field_spatial`` wait for ROADMAP.md Queue A
-item 7 and raise ``NotImplementedError``.
+Tensor parallelism: ``model_parallel`` ranks next to each other form a
+``model`` group. ``sfno_param_spec`` places each SFNO parameter (``Shard``
+of its output channels, or ``Replicate``), and ``shard_params`` leaves each
+rank its shard and makes the model compute with it
+(``parallel/tensor_parallel.py``). ``shard_field_spatial`` splits a solver
+field's rows over ``model`` (pencil FFTs, ``parallel/pencil.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import re
+from typing import Any, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-
-_QUEUE_A_7 = ("waits for ROADMAP.md Queue A item 7 (tensor parallelism on "
-              "DTensor); not ported to PyTorch yet")
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import Placement
 
 
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
               axis_names: Tuple[str, str] = ("data", "model")) -> DeviceMesh:
-    """A (data, model) mesh over the whole process group: every rank on the
-    data axis. The group must be up (``parallel.launch``, or
-    ``torch.distributed.run``); ``n_devices``, where given, must be its size."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel}: {_QUEUE_A_7}")
+    """A ``(world // model_parallel, model_parallel)`` mesh over the whole
+    process group, named ``axis_names``. The model axis is the fast one:
+    ranks ``d·mp … d·mp + mp - 1`` form one model group, as JAX's
+    ``reshape(n // mp, mp)`` of the device list. The group must be up
+    (``parallel.launch``, or ``torch.distributed.run``); ``n_devices``, where
+    given, must be its size."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: launch through "
                            "tpu_cfd_torch.parallel.launch or torch.distributed.run")
@@ -42,12 +47,20 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     if n_devices is not None and n_devices != world:
         raise ValueError(f"requested n_devices={n_devices} but the process "
                          f"group has {world} rank(s)")
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide {world} "
+                         "devices")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (world, 1), mesh_dim_names=tuple(axis_names))
+    return init_device_mesh(device_type, (world // model_parallel, model_parallel),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
 def _split(x, mesh: DeviceMesh, axis: str):
-    n, r = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis)
+    n, r = axis_size(mesh, axis), mesh.get_local_rank(axis)
     if isinstance(x, torch.Tensor):
         return torch.tensor_split(x, n)[r]
     return np.array_split(np.asarray(x), n)[r]
@@ -101,16 +114,116 @@ def all_ranks(ok: bool, mesh: DeviceMesh) -> bool:
     return bool(flag.item())
 
 
-def sfno_param_spec(*args, **kwargs):
-    """Tensor-parallel placement of SFNO/FNO parameters: not ported."""
-    raise NotImplementedError(f"sfno_param_spec {_QUEUE_A_7}")
+def mean_over(t: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``axis`` (SUM then divide: gloo
+    has no AVG), out of place."""
+    t = t.detach().clone()
+    dist.all_reduce(t, group=mesh.get_group(axis))
+    return t / axis_size(mesh, axis)
 
 
-def shard_params(*args, **kwargs):
-    """Places parameters on the mesh by ``sfno_param_spec``: not ported."""
-    raise NotImplementedError(f"shard_params {_QUEUE_A_7}")
+def average_gradients(params: Iterable[torch.Tensor], mesh: DeviceMesh,
+                      axis: str = "data") -> None:
+    """Each gradient replaced by its mean over the ranks of ``axis``, in
+    place: what DDP does, for a model DDP does not take (parameters sharded
+    on ``model``). The gradients of one dtype go flat into one all-reduce, in
+    the order given (the same on every rank); a parameter without a gradient
+    joins with zeros."""
+    group, n = mesh.get_group(axis), axis_size(mesh, axis)
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
-def shard_field_spatial(*args, **kwargs):
-    """Shards a spatial axis of a solver field (pencil FFTs): not ported."""
-    raise NotImplementedError(f"shard_field_spatial {_QUEUE_A_7}")
+def sfno_layout(name: str, param: torch.Tensor, n_model: int) -> Placement:
+    """Where the tensor-parallel SFNO splits ``param`` over ``n_model``
+    ranks, by the port's names (``convert.py``): JAX's rule
+    (``tpu_cfd/parallel/mesh.py::sfno_param_spec``) in the port's layouts.
+
+    - A spectral block ``weight_{i}`` ``(*modes, c_i, c_o, 2)``: ``Shard`` of
+      ``c_o`` (dim −2) where ``n_model`` divides it.
+    - An ``nn.Linear``: ``Shard(0)`` of ``weight`` ``(out, in)`` and of its
+      bias where ``n_model`` divides ``out``.
+    - A ``PointwiseFFN`` (``dense_0``, ``dense_1``), Megatron's MLP: ``dense_0``
+      sharded on its output (the hidden units), ``dense_1``'s ``weight`` on its
+      input (the same units, ``Shard(1)``) and its bias replicated, added once
+      after the partial outputs are summed. JAX shards ``dense_1``'s output
+      and gathers the weights for its unsplittable FFN kernel; here each rank
+      runs the kernel on its hidden units.
+    - Everything else is replicated: the LayerNorm (``norm``), the spectral
+      biases, and the output conv (``out_conv``), whose Helmholtz projection
+      mixes its output channels in mode space.
+    """
+    *owner, leaf = name.split(".")
+    shape = tuple(param.shape)
+    if not owner or owner[0] == "out_conv" or owner[-1] == "norm":
+        return Replicate()
+    if re.fullmatch(r"weight_\d+", leaf) and len(shape) >= 3:
+        return Shard(len(shape) - 2) if shape[-2] % n_model == 0 else Replicate()
+    if owner[-1] == "dense_1" and any(o.startswith("ffn") for o in owner):
+        if leaf == "weight" and shape[1] % n_model == 0:
+            return Shard(1)
+        return Replicate()
+    if leaf in ("weight", "bias") and shape[0] % n_model == 0:
+        return Shard(0)
+    return Replicate()
+
+
+def sfno_param_spec(name: str, param: torch.Tensor, mesh: DeviceMesh) -> Placement:
+    """The placement of an SFNO parameter on the ``model`` axis: ``Replicate()``
+    for every parameter where that axis has one rank, else ``sfno_layout``."""
+    n_model = axis_size(mesh, "model")
+    return Replicate() if n_model == 1 else sfno_layout(name, param, n_model)
+
+
+def shard_params(model: nn.Module, mesh: DeviceMesh, spec_fn=sfno_param_spec) -> nn.Module:
+    """Places ``model``'s parameters on the ``model`` axis by ``spec_fn(name,
+    param, mesh)``, in place: each rank keeps only its shard of a sharded
+    parameter, and the model computes with its shards (collectives over the
+    model group, ``parallel/tensor_parallel.py``). Replicated parameters stay
+    as they are. Only the SFNO is known; another module raises. Returns
+    ``model``."""
+    from tpu_cfd_torch.parallel import tensor_parallel
+
+    return tensor_parallel.shard_sfno(model, mesh, spec_fn)
+
+
+def sharded_parameters(model: nn.Module) -> dict:
+    """``{name: DTensor}`` of a model that ``shard_params`` placed: each rank's
+    tensor (no copy, no gradient) with its placement on the ``model`` axis.
+    ``full_tensor()`` assembles a parameter on every rank."""
+    mesh = model.tp_mesh["model"]
+    return {name: DTensor.from_local(p.detach(), mesh, [model.tp_placements[name]],
+                                     run_check=False)
+            for name, p in model.named_parameters()}
+
+
+def gather_parameters(model: nn.Module) -> dict:
+    """The full ``state_dict``-shaped parameters of a model that
+    ``shard_params`` placed, on every rank of its model group."""
+    return {k: d.full_tensor() for k, d in sharded_parameters(model).items()}
+
+
+def shard_field_spatial(field: torch.Tensor, mesh: DeviceMesh, spatial_axis: int = -2,
+                        axis: str = "model") -> DTensor:
+    """The rank's slab of ``field`` along ``spatial_axis`` over the mesh axis
+    ``axis``, as a ``DTensor`` (``Shard`` there, ``Replicate`` on the other
+    axes). A ``NavierStokes2DSpectral`` with ``fft_impl="fft"`` steps a
+    spectrum sharded on its rows (``spatial_axis=-2``) by pencil FFTs
+    (``parallel/pencil.py``)."""
+    dim = spatial_axis % field.ndim
+    n, r = axis_size(mesh, axis), mesh.get_local_rank(axis)
+    if field.shape[dim] % n:
+        raise ValueError(f"{n} ranks on {axis!r} do not divide axis {spatial_axis} of "
+                         f"size {field.shape[dim]}")
+    local = torch.chunk(field, n, dim=dim)[r].contiguous()
+    placements = [Shard(dim) if a == axis else Replicate() for a in mesh.mesh_dim_names]
+    return DTensor.from_local(local, mesh, placements, run_check=False)

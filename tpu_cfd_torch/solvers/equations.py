@@ -6,7 +6,8 @@ linear term) are tensors built once on an explicit ``device``. State is the
 rfft2 half-spectrum of vorticity ``(..., n, n//2+1)``; leading dims are
 batch. ``forward(..., steps=k)`` is a Python loop over the stepper, or, with
 ``fused=True``, one call of the hand-written CUDA rollout
-(``ops/cuda/spectral_step.py``).
+(``ops/cuda/spectral_step.py``); a spectrum sharded on its rows over ranks
+steps by pencil FFTs (``parallel/pencil.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from tpu_cfd_torch.ops.spectral import (
     brick_wall_filter_2d,
     brick_wall_mask_2d,
     spectral_curl_2d,
-    vorticity_to_velocity,
+    spectral_laplacian_2d,
+    spectral_rot_2d,
 )
 
 Tensor = torch.Tensor
@@ -346,7 +348,7 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
             kx, ky = kx[self._row_index], ky[self._row_index]
         self.kx, self.ky = kx.contiguous(), ky.contiguous()
         # Laplacian symbol without the zero-mode guard; the stream-function
-        # inversion in vorticity_to_velocity applies the guard itself
+        # inversion in _stream applies the guard itself
         self.laplace = -4 * (math.pi**2) * (self.kx.abs() ** 2 + self.ky.abs() ** 2)
         self.linear_term = self.viscosity * self.laplace - self.drag
         if self._rows is not None:
@@ -362,8 +364,12 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
             self.filter = brick_wall_filter_2d(
                 self.grid, dtype=self.dtype, device=self.device)[..., : self._m]
 
+    def _stream(self, vort_hat: Tensor) -> Tensor:
+        """The stream function ψ̂ = -ŵ/Δ̂, the zero mode guarded."""
+        return -vort_hat / spectral_laplacian_2d((self.kx, self.ky))
+
     def _explicit_terms(self, vort_hat: Tensor) -> Tensor:
-        vhat, _ = vorticity_to_velocity(self.grid, vort_hat, (self.kx, self.ky))
+        vhat = spectral_rot_2d(self._stream(vort_hat), (self.kx, self.ky))
         grad_x_hat = 2j * math.pi * self.kx * vort_hat
         grad_y_hat = 2j * math.pi * self.ky * vort_hat
         specs = torch.stack([vhat[0], vhat[1], grad_x_hat, grad_y_hat])
@@ -414,7 +420,16 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
 
     def forward(self, vort_hat: Tensor, dt: float, steps: int = 1
                 ) -> Tuple[Tensor, Tensor]:
-        """Marches ``steps`` steps; returns (ŵ_new, ∂ŵ/∂t estimate)."""
+        """Marches ``steps`` steps; returns (ŵ_new, ∂ŵ/∂t estimate). A
+        spectrum that ``parallel.shard_field_spatial`` sharded on its rows
+        steps by pencil FFTs (``parallel/pencil.py``), sharded as it came."""
+        if type(vort_hat) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+
+            if isinstance(vort_hat, DTensor):
+                from tpu_cfd_torch.parallel import pencil
+
+                return pencil.forward(self, vort_hat, dt, steps)
         shape_in = tuple(vort_hat.shape[-2:])
         vort_hat = self._align(vort_hat)
         vort_old = vort_hat

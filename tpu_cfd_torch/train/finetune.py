@@ -8,7 +8,9 @@ by ±dt Crank-Nicolson solves (``solvers/trajectories.imex_crank_nicolson_step``
 the step that the legacy rollout takes) and the spectral NSE residual, all
 plain ``torch.fft`` and autograd. ``finetune_steps`` refines only that conv
 with Adam, two parameter groups (bias fast, weight slow) where ``lr_bias``
-is given. No hand-written kernel runs here: ``SpectralConvT`` takes its
+is given; with a ``mesh`` it is data-parallel (the latents sharded on
+``data``, the parameters replicated, the gradients averaged). No
+hand-written kernel runs here: ``SpectralConvT`` takes its
 DFT einsums or ``torch.fft`` in any dtype, and the examples' fine-tune runs
 in fp64.
 """
@@ -179,7 +181,7 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
                    lr: float = 1e-3, lr_bias: Optional[float] = None,
                    residual_norm: Optional[Callable] = None,
                    track: Optional[Callable] = None, keep_best: bool = True,
-                   lr_decay: Optional[float] = None) -> List:
+                   lr_decay: Optional[float] = None, mesh=None) -> List:
     """Adam refinement of ``model``'s parameters against the residual norm.
 
     Each step evaluates the loss (and ``track(out)``, extra metrics from the
@@ -194,6 +196,15 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
     appends that, and leaves the model at the best-residual parameters seen
     (a copy taken when they were): the Adam tail is non-monotonic at the
     discretization floor. Otherwise the model keeps its last parameters.
+
+    With a ``mesh`` (``parallel.make_mesh``), data parallelism as the JAX
+    function's under a mesh: ``v_latent``, ``v_res`` (and a per-sample ``f``)
+    are the rank's shards on ``data`` (``parallel.shard_batch``) and the
+    model's parameters replicated (``parallel.replicate``). The gradients are
+    averaged over ``data`` before each update, and each history entry
+    (``track``'s metrics too) is the mean over ``data`` of the shards'
+    values: the global value for a batch-mean ``residual_norm`` on equal
+    shards, so ``keep_best`` decides alike on every rank.
     """
     if residual_norm is None:
         residual_norm = BochnerNorm(n_grid=v_res.shape[1], relative=False,
@@ -205,14 +216,23 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda k: lr_decay ** (k / n_steps))
 
+    def over_data(t) -> float:
+        t = torch.as_tensor(t, device=v_res.device).detach()
+        if mesh is None:
+            return float(t)
+        from tpu_cfd_torch.parallel import mean_over
+
+        return float(mean_over(t, mesh))
+
     def record(loss: Tensor, out) -> None:
-        value = float(loss)
+        value = over_data(loss)
         if track is None:
             history.append(value)
         else:
             with torch.no_grad():
                 extras = track(out)
-            history.append({"residual": value, **{k: float(v) for k, v in extras.items()}})
+            history.append({"residual": value,
+                            **{k: over_data(v) for k, v in extras.items()}})
 
     history: List = []
     best_loss, best_state = math.inf, None
@@ -221,6 +241,10 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
         out = model(v_latent, v_res, f, out_steps=out_steps)
         loss = residual_norm(out["residual"])
         loss.backward()
+        if mesh is not None:
+            from tpu_cfd_torch.parallel import average_gradients
+
+            average_gradients(model.parameters(), mesh)
         record(loss, out)
         if keep_best and history_residual(history[-1]) < best_loss:
             best_loss = history_residual(history[-1])
