@@ -152,7 +152,18 @@ printing no result, when either is missing or any phase fails:
    dry run's and the train steps' launches are held to exact counts, and the
    kernel instances they run (the dry run's FFN and DFT pair at 16², m=4,
    at each of its batches; the recipe's at b=4) against their plain
-   versions.
+   versions; then one train step of FNO3d at the example's defaults (b=4)
+   through ``shard_params`` the same way, against the same step unsharded
+   (rtol 1e-5, atol 1e-6), launching no kernel;
+18. main path 12, the FNO recipe (``fno_recipe_phase``): ``generate fno``
+   256² → 64² with the extra variables (16 samples at b=8, 60 records),
+   ``train --example fno`` at the recipe's widths (width 20, modes 12/12/5,
+   t 10 → 40, beta 0.02, GELU, b=4; 2 epochs of 2 steps), an fp64 256² FNO
+   test set (2 samples, 80 records), ``train --eval-only --double`` at 256²
+   on it and ``ex2_sfno_finetune --example fno``, 10 iterations; the DFT
+   pair (800 planes at m=12) and the FFN (163,840 rows, 20 → 80 → 20 GELU,
+   also held against its plain version and timed in phases 5 and 7) by
+   exact count, and no kernel in the datasets, the eval or the fine-tune.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -400,6 +411,14 @@ def hold_instances(tag, model, forwards, modes, width, latent, dev, gen):
     return errs
 
 
+def take_counts(mods) -> dict:
+    """The launch counters of the kernel modules ``mods``, read and set to 0."""
+    out = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    for mod in mods:
+        mod.reset_launch_counts()
+    return out
+
+
 def expected_sfno(forwards, trains, layers, modes, width, latent):
     """Launches of an SFNO's kernels over the train steps ``trains`` [(batch,
     n, steps)] and the forward-only passes ``forwards`` [(batch, n)]: the FFN
@@ -435,7 +454,7 @@ def tensor_parallel_phase(dev) -> dict:
     import torch.distributed as dist
 
     from tpu_cfd_torch import parallel
-    from tpu_cfd_torch.models import SFNO, init_like_flax
+    from tpu_cfd_torch.models import FNO3d, SFNO, init_like_flax, make_fno3d_input
     from tpu_cfd_torch.models.fused_conv import _dft2d_constants, fused_pair_wins
     from tpu_cfd_torch.ops.cuda import ffn as ffn_ops, spectral_conv as sc
     from tpu_cfd_torch.ops.cuda import spectral_step as ss
@@ -567,13 +586,8 @@ def tensor_parallel_phase(dev) -> dict:
             opt.step()
             return float(loss.detach())
 
-        counters = (ss, sc, ffn_ops)
-
         def counts():
-            out = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
-            for mod in counters:
-                mod.reset_launch_counts()
-            return out
+            return take_counts((ss, sc, ffn_ops))
 
         counts()
         dry = dryrun.run(dev, log=lambda line: print(f"phase 17: {line}", flush=True))
@@ -638,6 +652,52 @@ def tensor_parallel_phase(dev) -> dict:
                   f"{pr['device_busy_ms']:.3f} ms, {pr['launches']} launches; collectives' "
                   f"host time {pr['collective_host_ms']:.3f} ms; top host ops "
                   f"{pr['top_host_ms']}", flush=True)
+
+        # FNO3d at the example's defaults (b=4) through shard_params, every
+        # leaf on the model axis of one rank, one step against the same step
+        # unsharded: its convs take torch.fft and its MLPs are nn.Linear, so
+        # neither step launches a kernel
+        fno_ref = init_like_flax(FNO3d(rm, rm, RECIPE["modes_t"], width=rw, input_channel=nt),
+                                 torch.Generator().manual_seed(0)).to(dev)
+        fno_tp = copy.deepcopy(fno_ref)
+        parallel.shard_params(fno_tp, mesh,
+                              spec_fn=lambda k, p, m: parallel.sfno_layout(k, p, 1))
+        fno_x = make_fno3d_input(v, nt)
+        fno_loss = losses.SobolevLoss(n_grid=n, norm_order=0, relative=True)
+
+        def fno_step(model, opt, sharded):
+            opt.zero_grad(set_to_none=True)
+            loss = fno_loss(model(fno_x)[0], y)
+            loss.backward()
+            if sharded:
+                parallel.average_gradients(model.parameters(), mesh)
+            opt.step()
+            return float(loss.detach())
+
+        fno_opts = [torch.optim.Adam(m_.parameters(), lr=1e-3) for m_ in (fno_tp, fno_ref)]
+        counts()
+        fno_losses = [fno_step(fno_tp, fno_opts[0], True),
+                      fno_step(fno_ref, fno_opts[1], False)]
+        torch.cuda.synchronize()
+        fno_launches = counts()
+        fno_got = parallel.gather_parameters(fno_tp)
+        fno_worst = 0.0
+        for k, p in fno_ref.named_parameters():
+            _require(bool(torch.allclose(fno_got[k], p.detach(), rtol=1e-5, atol=1e-6)),
+                     f"tensor-parallel FNO3d step: parameter {k} differs from the unsharded")
+            fno_worst = max(fno_worst, float((fno_got[k] - p.detach()).abs().max()))
+        _require(abs(fno_losses[0] - fno_losses[1]) <= 1e-5 * abs(fno_losses[1]),
+                 f"tensor-parallel FNO3d loss {fno_losses}")
+        _require(not any(fno_launches.values()),
+                 f"the FNO3d steps launched a kernel: {fno_launches}")
+        fno_sharded = sum(type(pl).__name__ == "Shard" for pl in fno_tp.tp_placements.values())
+        fno_ms = {"tensor_parallel": cuda_ms(lambda: fno_step(fno_tp, fno_opts[0], True), 5),
+                  "unsharded": cuda_ms(lambda: fno_step(fno_ref, fno_opts[1], False), 5)}
+        print(f"phase 17: FNO3d (b{b}, the example's defaults) through shard_params, "
+              f"{fno_sharded} of {len(fno_tp.tp_placements)} leaves placed Shard: one step's "
+              f"parameters within {fno_worst:.3e} of the unsharded step's, losses "
+              f"{fno_losses}, launches {fno_launches}; {fno_ms['tensor_parallel']:.3f} ms "
+              f"a step against {fno_ms['unsharded']:.3f} unsharded", flush=True)
     finally:
         dist.destroy_process_group()
     launches = {k: dry_launches[k] + tp_launches.get(k, 0) for k in dry_launches}
@@ -645,7 +705,10 @@ def tensor_parallel_phase(dev) -> dict:
                tp_params_max_diff=worst, tp_losses=tp_losses, unsharded_losses=ref_losses,
                sharded_leaves=len(sharded), launches_dryrun=dry_launches, profiles=profiles,
                launches_tp_steps=tp_launches, expected_launches_dryrun=dry_want,
-               expected_launches_tp_steps=tp_want, kernel_vs_plain=held)
+               expected_launches_tp_steps=tp_want, kernel_vs_plain=held,
+               fno3d={"params_max_diff": fno_worst, "losses": fno_losses,
+                      "launches": fno_launches, "sharded_leaves": fno_sharded,
+                      "step_ms": fno_ms})
     print(f"phase 17: the recipe's SFNO (b{b}) through shard_params at world 1 on NCCL, "
           f"{len(sharded)} of {len(tp.tp_placements)} leaves placed Shard on a model axis of "
           f"one rank: {ms_tp:.3f} ms a step against {ms_ref:.3f} unsharded; two steps' "
@@ -668,6 +731,119 @@ def tensor_parallel_phase(dev) -> dict:
           f"{row['dryrun_torchrun']['legs_ms']} ms by leg, "
           f"{row['dryrun_torchrun_s']:.2f} s with process start", flush=True)
     return {"row": row, "launches": launches}
+
+
+def fno_recipe_phase(dev, tmp, gen) -> dict:
+    """18. Main path 12, the FNO recipe (``train/recipe_accuracy.py``'s FNO
+    stages) through its CLIs at the recipe's widths with its depth cut: the
+    FNO dataset 256² → 64² (16 samples at b=8, 100 warm-up steps and 60
+    records 5 steps apart, the extra variables; cut from 1,280 samples and
+    3·10⁴ + 2·10⁴ steps), the SFNO at width 20, modes 12/12/5, t 10 → 40,
+    beta 0.02, GELU, b=4 (9,242,461 parameters) for 2 epochs of 2 steps on 8
+    samples with 4 held out (cut from 10 epochs on 1,152 + 128), an fp64
+    256² FNO test set (2 samples, 100 warm-up steps and 80 records 2 steps
+    apart: the eval and the fine-tune read frames 30-79; cut from 4 samples
+    and 3·10⁴ + 2·10⁴ steps), the zero-shot eval at 256² in fp64 on it, and
+    the FNO-data fine-tune, 10 iterations (cut from 80). The launches of
+    every kernel are held to exact counts: the FFN once a layer a forward
+    and the DFT pair where ``fused_pair_wins`` names the 800 planes, in
+    training and validation only (the datasets are IMEX order 2 on
+    ``torch.fft``; the eval and the fine-tune run in fp64). The path's
+    kernel instances are held against their plain versions. Returns the
+    phase's row and the path's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_cfd_torch.data import generate
+    from tpu_cfd_torch.examples import ex2_sfno_finetune
+    from tpu_cfd_torch.ops.cuda import adam as adam_ops, ffn as ffn_ops
+    from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
+    from tpu_cfd_torch.train import recipe_accuracy as ra, train
+
+    counters = (ss, sc, ffn_ops, adam_ops)
+
+    def timed(fn):
+        take_counts(counters)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, take_counts(counters)
+
+    fdir = os.path.join(tmp, "fno_recipe")
+    row = {}
+    data_path, row["dataset_s"], gen_launches = timed(lambda: generate.main_fno(ra.override(
+        ra.FNO_GENERATE, {"--num-samples": "16", "--batch-size": "8", "--time": "0.4",
+                          "--time-warmup": "0.1", "--num-steps": "60", "--filepath": fdir})))
+    with np.load(data_path) as z:
+        shapes = {k: z[k].shape for k in ("vorticity", "stream", "vort_t", "residual")}
+        finite = all(np.isfinite(z[k]).all() for k in shapes)
+    print(f"main path 12: fno dataset 256^2->64^2, 16 samples b8, 100 + 296 steps, "
+          f"--extra-vars, in {row['dataset_s']:.2f} s: {shapes}", flush=True)
+    _require(finite and all(s == (16, 60, 64, 64) for s in shapes.values()),
+             f"the FNO recipe's dataset: {shapes}, finite {finite}")
+
+    targv = ra.override(ra.FNO_TRAIN, {"--epochs": "2", "--num-samples": "8",
+                                    "--num-val-samples": "4", "--train-file": data_path})
+    run, row["train_s"], train_launches = timed(lambda: train.main(targv))
+    hist = run["history"]
+    print(f"main path 12: train --example fno at the recipe's widths, {run['n_params']} "
+          f"parameters, 2 epochs x 2 steps + 1 val batch in {row['train_s']:.2f} s, "
+          f"history {hist}", flush=True)
+    _require(run["n_params"] == SWEEP_PARAMS, f"FNO recipe parameters {run['n_params']}")
+    _require(len(hist) == 2 and all(np.isfinite([h["train"] for h in hist]
+                                                + [h["val"] for h in hist])),
+             "finite FNO recipe train and val losses")
+    b, n, width, modes, latent = 4, 64, 20, 12, 10
+    want = expected_sfno([(b, n)] * 2, [(b, n, 4)], 4, modes, width, latent)
+    fused_pair = want["modes"] > 0
+    _require(fused_pair, f"fused_pair_wins names the FNO recipe's {b * latent * width} "
+             "planes, as the sweep's")
+    _require({k: train_launches[k] for k in want} == want
+             and not any(train_launches[k] for k in ("inverse_first", "advect",
+                                                     "forward_first", "adam")),
+             f"the FNO recipe's training launches {train_launches}, expected {want}")
+
+    ftargv = ra.override(ra.FNO_FT_DATA, {"--num-samples": "2", "--batch-size": "2",
+                                       "--time": "0.26", "--time-warmup": "0.1",
+                                       "--num-steps": "80", "--filepath": fdir})
+    ft_path, row["fp64_test_set_s"], ft_data_launches = timed(
+        lambda: generate.main_fno(ftargv))
+    with np.load(ft_path) as z:
+        ft_shape, ft_dtype = z["vorticity"].shape, z["vorticity"].dtype
+    _require(ft_shape == (2, 80, 256, 256) and ft_dtype == np.float64,
+             f"the FNO fp64 test set: {ft_shape} {ft_dtype}")
+    eargv = ra.override(ra.FNO_EVAL, {"--num-test-samples": "2", "--num-samples": "8",
+                                   "--num-val-samples": "4", "--train-file": data_path,
+                                   "--test-file": ft_path})
+    ev, row["eval_s"], eval_launches = timed(lambda: train.main(eargv))
+    row["eval_256_rel"] = ev["test"]
+    print(f"main path 12: fp64 test set 256^2, 2 samples, 100 + 159 steps in "
+          f"{row['fp64_test_set_s']:.2f} s; --eval-only --double at 256^2: rel Sobolev "
+          f"{ev['test']:.4e} in {row['eval_s']:.2f} s", flush=True)
+    _require(ev["test"] is not None and np.isfinite(ev["test"]) and not ev["history"],
+             f"the FNO recipe's 256^2 eval: {ev['test']}")
+
+    fargv = ra.override(ra.FNO_FINETUNE, {"--iters": "10", "--test-file": ft_path,
+                                       "--ckpt": run["checkpoint"]})
+    ft, row["finetune_s"], ft_launches = timed(lambda: ex2_sfno_finetune.main(fargv))
+    res = [h["residual"] for h in ft["history"]]
+    row.update(zero_shot_rel_l2=ft["zero_shot_rel_l2"], gt_floor=ft["gt_floor"],
+               residuals=res, iter_seconds=ft["iter_seconds"])
+    print(f"main path 12: ex2_sfno_finetune --example fno, 10 iterations in "
+          f"{row['finetune_s']:.2f} s: zero-shot rel-L2 {ft['zero_shot_rel_l2']:.4e}, GT "
+          f"floor {ft['gt_floor']:.4e}, iteration 0 {res[0]:.4e}, best {ft['best']:.4e} at "
+          f"{ft['best_iter']}, ms an iteration (median) "
+          f"{1e3 * float(np.median(ft['iter_seconds'])):.2f}", flush=True)
+    _require(len(res) == 11 and all(np.isfinite(res + [ft["gt_floor"],
+                                                       ft["zero_shot_rel_l2"]]))
+             and ft["best"] <= res[0], f"the FNO-data fine-tune: {res}")
+    for tag, launched in (("dataset", gen_launches), ("fp64 test set", ft_data_launches),
+                          ("eval", eval_launches), ("fine-tune", ft_launches)):
+        _require(not any(launched.values()), f"the FNO recipe's {tag} launched {launched}")
+    row["kernel_vs_plain"] = hold_instances("FNO recipe", run["model"], [(b, n)], modes,
+                                            width, latent, dev, gen)
+    row.update(launches=train_launches, expected_launches=want, fused_pair=fused_pair)
+    return {"row": row, "launches": train_launches}
 
 
 def main() -> int:
@@ -963,9 +1139,11 @@ def main() -> int:
                     err=err, err_bf16=err_h)
 
     # main path 2 runs the recipe's instance on float32 rows; main path 3 runs
-    # the sweep's (another template instance, ReLU) on float32 and bfloat16
+    # the sweep's (another template instance, ReLU) on float32 and bfloat16;
+    # main path 12 (the FNO recipe) the sweep's rows and widths with GELU
     ffn_recipe = ffn_case(rb, rw, "GELU")
     ffn_sweep = ffn_case(SWEEP_BATCH, sw, "ReLU")
+    ffn_fno = ffn_case(SWEEP_BATCH, sw, "GELU")
     results["pointwise_ffn"] = dict(max_abs_err=ffn_recipe["err"])
     results["pointwise_ffn_bf16"] = dict(max_abs_err=ffn_sweep["err_bf16"])
 
@@ -1235,10 +1413,11 @@ def main() -> int:
             two_pass[name + key] = cuda_ms(fn, 20)
             print(f"time {name}{key} on two passes: {two_pass[name + key]:.4f} ms",
                   flush=True)
-    # the other two instances, for the table only
+    # the other instances, for the table only
     ffn_other = {}
     for name, case, bf16 in (("recipe_bf16", ffn_recipe, True),
-                             ("sweep_fp32", ffn_sweep, False)):
+                             ("sweep_fp32", ffn_sweep, False),
+                             ("fno_recipe_fp32", ffn_fno, False)):
         kern, plain, _, flops, nbytes = ffn_timed(case, bf16)
         ffn_other[name] = {
             "max_abs_err": case["err_bf16" if bf16 else "err"], "rows": case["rows"],
@@ -2281,11 +2460,15 @@ def main() -> int:
           f"{summary[-1].strip()}", flush=True)
     _require(traced_launches == 50 and 0 < advect <= traced_launches and annotated,
              "the trace holds spectral_advect launches and the annotation")
-    tmp_ctx.cleanup()
 
     # -- 17. main path 11: tensor parallelism at world 1 on NCCL -------------
     p17 = tensor_parallel_phase(dev)
     tp_launches = p17["launches"]
+
+    # -- 18. main path 12: the FNO recipe end to end, depth cut --------------
+    p18 = fno_recipe_phase(dev, tmp, gen)
+    fno_launches = p18["launches"]
+    tmp_ctx.cleanup()
 
     sources = {"spectral_inverse_first": ("spectral_step", "inverse_first"),
                "spectral_advect": ("spectral_step", "advect"),
@@ -2331,18 +2514,21 @@ def main() -> int:
     # main path 11 (phase 17) runs row 2's kernels (the dry run's aligned
     # rollout), the DFT pair (its 16^2 SFNO and the recipe's at b=4, where
     # fused_pair_wins names the pair) and the FFN, whose launches join the
-    # rows of the recipe's shapes
+    # rows of the recipe's shapes; main path 12 (phase 18) runs the DFT pair
+    # at the sweep's shape (800 planes at m=12), whose rows its launches join,
+    # and the FFN on float32 rows
     launches = {**{("spectral_step", k): v + kol_launches[k] + demo_launches[k]
                    + dp_gen_launches[k] + tp_launches[k] for k, v in gen_launches.items()},
                 **{("spectral_conv", k): v + sweep_launches[k] + dp_train_launches[k]
                    + ex_launches[k] + tp_launches[k]
                    for k, v in train_launches.items() if k in sc.LAUNCHES},
-                ("spectral_conv", "modes_fused_sweep"):
-                    sweep_launches["modes_fused"] + demo_launches["modes_fused"],
-                ("spectral_conv", "inverse_fused_sweep"):
-                    sweep_launches["inverse_fused"] + demo_launches["inverse_fused"],
+                ("spectral_conv", "modes_fused_sweep"): sweep_launches["modes_fused"]
+                + demo_launches["modes_fused"] + fno_launches["modes_fused"],
+                ("spectral_conv", "inverse_fused_sweep"): sweep_launches["inverse_fused"]
+                + demo_launches["inverse_fused"] + fno_launches["inverse_fused"],
                 ("ffn", "ffn"): train_launches["ffn"] + demo_launches["ffn"]
-                + dp_train_launches["ffn"] + ex_launches["ffn"] + tp_launches["ffn"],
+                + dp_train_launches["ffn"] + ex_launches["ffn"] + tp_launches["ffn"]
+                + fno_launches["ffn"],
                 # main path 3: its bf16 run for the bf16 rows, its fp32 run for Adam
                 ("ffn", "ffn_bf16"): bf16_launches["ffn"],
                 ("adam", "adam"): sweep_launches["adam"]}
@@ -2360,11 +2546,12 @@ def main() -> int:
                                   "11": tp_launches[key]}}
             if name in ("dft2d_modes", "dft2d_inverse") else {}),
          **({"launches_by_path": {"3": sweep_launches[key[:-len("_sweep")]],
-                                  "8": demo_launches[key[:-len("_sweep")]]}}
+                                  "8": demo_launches[key[:-len("_sweep")]],
+                                  "12": fno_launches[key[:-len("_sweep")]]}}
             if name in ("dft2d_modes_sweep", "dft2d_inverse_sweep") else {}),
          **({"launches_by_path": {"2": train_launches["ffn"], "8": demo_launches["ffn"],
                                   "9": dp_train_launches["ffn"], "10": ex_launches["ffn"],
-                                  "11": tp_launches["ffn"]}}
+                                  "11": tp_launches["ffn"], "12": fno_launches["ffn"]}}
             if name == "pointwise_ffn" else {}),
          **({"launches_by_path": {"1": gen_launches[key], "5": kol_launches[key],
                                   "8": demo_launches[key], "9": dp_gen_launches[key],
@@ -2391,6 +2578,7 @@ def main() -> int:
         "finetune_main_path_7": ft_row, "demo_main_path_8": demo_row, "fvm_phase_13": fvm_rows,
         "data_parallel_main_path_9": dp_rows, "examples_main_path_10": ex_rows,
         "utilities_phase_16": util_row, "tensor_parallel_main_path_11": p17["row"],
+        "fno_recipe_main_path_12": p18["row"],
         "card": card}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -226,6 +226,22 @@ def test_ffn_kernel_shapes_match_plain(dev, k, h, k_out, rows, dtype):
         1e-5 if dtype == torch.float32 else 2.0 ** -7)
 
 
+def test_ffn_kernel_at_the_fno_recipes_shape(dev):
+    """The FNO recipe's instance (``train --example fno``: b=4, 64², 10
+    latent steps, width 20): 163,840 float32 rows, 20 → 80 → 20, GELU, one
+    launch, within 1e-5 of the plain version's largest entry."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(4 * 64 * 64 * 10, 20, device=dev, generator=gen)
+    w1, b1 = 0.3 * torch.randn(80, 20, device=dev, generator=gen), torch.randn(80, device=dev)
+    w2, b2 = 0.15 * torch.randn(20, 80, device=dev, generator=gen), torch.randn(20, device=dev)
+    tffn.reset_launch_counts()
+    got = tffn.ffn_forward(x, w1, b1, w2, b2, "GELU")
+    want = tffn._ffn_plain(x, w1, b1, w2, b2, "GELU")
+    torch.cuda.synchronize()
+    assert tffn.LAUNCHES["ffn"] == 1 and got.shape == (163_840, 20)
+    assert _rel_err(got, want) <= 1e-5
+
+
 def test_ffn_kernel_takes_rows_that_are_not_16_byte_aligned(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     buf = torch.randn(1 + 300 * 10, device=dev, generator=gen)
@@ -447,5 +463,45 @@ def test_tensor_parallel_sfno_at_world_1_on_nccl(dev, tmp_path):
             torch.testing.assert_close(got[k], p.detach(), rtol=1e-5, atol=1e-6, msg=k)
         out = dryrun.run(dev, log=lambda line: None)
         assert out["mesh"] == {"data": 1, "model": 1} and "fused_rollout" in out["legs_ms"]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_fno3d_at_world_1_on_nccl(dev, tmp_path):
+    """A small FNO3d through ``shard_params`` with every leaf on a model axis
+    of one rank (NCCL): one train step matches the unsharded one (rtol 1e-5,
+    atol 1e-6) and neither launches a kernel (its convs take ``torch.fft``,
+    its MLPs are ``nn.Linear``)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tpu_cfd_torch import parallel
+    from tpu_cfd_torch.train import losses
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        ref = tm.init_like_flax(tm.FNO3d(8, 8, 3, 8, input_channel=4),
+                                torch.Generator().manual_seed(0)).to(dev)
+        tp = parallel.shard_params(copy.deepcopy(ref), mesh,
+                                   spec_fn=lambda k, p, m: parallel.sfno_layout(k, p, 1))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        x = tm.make_fno3d_input(torch.randn(2, 32, 32, 4, device=dev, generator=gen), 6)
+        y = torch.randn(2, 32, 32, 6, device=dev, generator=gen)
+        loss_obj = losses.SobolevLoss(n_grid=32, norm_order=0, relative=True)
+        for model in (tp, ref):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            sc.reset_launch_counts()
+            tffn.reset_launch_counts()
+            loss_obj(model(x)[0], y).backward()
+            parallel.average_gradients(model.parameters(), mesh)
+            opt.step()
+            assert not any({**sc.LAUNCHES, **tffn.LAUNCHES}.values())
+        got = parallel.gather_parameters(tp)
+        for k, p in ref.named_parameters():
+            torch.testing.assert_close(got[k], p.detach(), rtol=1e-5, atol=1e-6, msg=k)
     finally:
         dist.destroy_process_group()

@@ -10,7 +10,11 @@ parameters rtol 1e-5, atol 1e-6), the batch-sharded solver (rtol 1e-6, atol
 10 steps, rtol 1e-5, atol 1e-5 as complex numbers) and the data-parallel
 fine-tune (history and parameters rtol 1e-5, atol 1e-7), the pencil FFT pair
 at 64² (33 columns over 2 ranks), and the train step on a model axis of 4;
-then the dry run's CLI at worlds 4 and 2.
+FNO3d's placements against JAX's ``sfno_param_spec`` leaf by leaf (model
+axes 2 and 4, widths 10 and 8) and its dp × tp train step (modes 4/4/2,
+width 8, 16², t 4) against the unsharded port and JAX's unsharded step at
+the SFNO's tolerances, with remat, with padding, on a model axis of 4, and in
+bfloat16 as the SFNO's; then the dry run's CLI at worlds 4 and 2.
 
 One spawn runs all of the world's cases: each rank records each case's
 outcome, and each test asserts its own. The JAX references are computed in
@@ -42,6 +46,12 @@ SPAWN_DEADLINE_S = 240
 SFNO_KW = dict(modes_x=4, modes_y=4, modes_t=2, width=8, latent_steps=4,
                num_spectral_layers=2)
 T_WIN, FT_BATCH = 4, 4  # the fine-tune's window; its batch, 2 a data rank
+FNO3D_KW = dict(modes1=4, modes2=4, modes3=2, width=8, num_spectral_layers=2,
+                channel_expansion=16)
+FNO3D_T = 4  # output steps of the FNO3d train step; its input is (8, 16, 16, 4, 13)
+# FNO3d's placements are held to JAX's at the example's width 10 (where a model
+# axis of 4 shards only the head's 128 hidden units) and at a width 4 divides
+FNO3D_PLACEMENT_CASES = [(width, mp) for width in (10, 8) for mp in (2, 4)]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -91,6 +101,14 @@ def _sfno(state, **kw):
     from tpu_cfd_torch.models import SFNO
 
     model = SFNO(**{**SFNO_KW, **kw})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def _fno3d(state, **kw):
+    from tpu_cfd_torch.models import FNO3d
+
+    model = FNO3d(**{**FNO3D_KW, **kw})
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model
 
@@ -293,12 +311,13 @@ def _finetune_case(rank, ref):
 
 def _refusal_case(rank, ref):
     from tpu_cfd_torch import grids
-    from tpu_cfd_torch.models import FNO3d
     from tpu_cfd_torch.solvers.equations import NavierStokes2DSpectral
 
     mesh = parallel.make_mesh(model_parallel=2)
-    with pytest.raises(TypeError, match="Queue A item 8"):
-        parallel.shard_params(FNO3d(4, 4, 2, 8), mesh)
+    # a module whose layers the port does not know (FNO3d's it does, since
+    # tensor parallelism of FNO3d was ported)
+    with pytest.raises(TypeError, match="knows the layers of SFNO, FNO3d, not Sequential"):
+        parallel.shard_params(torch.nn.Sequential(torch.nn.Linear(4, 8)), mesh)
     model = parallel.shard_params(_sfno(ref["init"]), mesh)
     with pytest.raises(ValueError, match="sharded already"):
         parallel.shard_params(model, mesh)
@@ -308,6 +327,131 @@ def _refusal_case(rank, ref):
         ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, device="cpu", **kw)
         with pytest.raises(ValueError, match="pencil-sharded field"):
             ns.forward(parallel.shard_field_spatial(what, mesh), 1e-3, 1)
+
+
+def _fno3d_params_case(rank, ref):
+    """At model axes 2 and 4, widths 10 and 8: every leaf's placement is JAX's
+    ``sfno_param_spec`` of the flax leaf that ``convert.py`` maps it to (a
+    Dense kernel sharded on ``out``, dim 1 of ``(in, out)``, is ``Shard(0)``
+    of the port's ``(out, in)`` weight), with each bias placed as its weight
+    (JAX replicates biases; the port shards a sharded layer's bias with its
+    output channels)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from tpu_cfd_torch.models import FNO3d
+
+    for width, mp in FNO3D_PLACEMENT_CASES:
+        mesh = parallel.make_mesh(model_parallel=mp)
+        want = {k: Replicate() if d is None else Shard(d)
+                for k, d in ref["fno3d_specs"][f"{width}/{mp}"].items()}
+        model = parallel.shard_params(FNO3d(4, 4, 2, width), mesh)
+        assert model.tp_placements == want, (width, mp, {
+            k: (model.tp_placements.get(k), want.get(k)) for k in set(want) | set(
+                model.tp_placements) if model.tp_placements.get(k) != want.get(k)})
+        sharded = {k for k, pl in want.items() if isinstance(pl, Shard)}
+        # width 10 on 4 ranks: the head's hidden units alone are sharded
+        if (width, mp) == (10, 4):
+            assert sharded == {"head.dense_0.weight", "head.dense_0.bias"}, sharded
+        else:
+            assert len(sharded) == len(want) - 2, sharded  # all but the head's dense_1
+        full = dict(FNO3d(4, 4, 2, width).named_parameters())
+        for k, local in model.named_parameters():
+            pl = want[k]
+            if isinstance(pl, Shard):
+                assert local.shape[pl.dim] == full[k].shape[pl.dim] // mp, k
+            else:
+                assert local.shape == full[k].shape, k
+
+
+def _fno3d_step(model, x, y, mesh=None):
+    """One Adam step of the FNO3d trainer's loss (``train/train_fno3d.py``:
+    the relative Sobolev norm of order 0 on the prediction); the loss and
+    the gradients, whole (a sharded model's gathered over its group)."""
+    from torch.distributed.tensor import DTensor
+
+    from tpu_cfd_torch.train import losses
+
+    loss_obj = losses.SobolevLoss(n_grid=16, norm_order=0, relative=True)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    loss = loss_obj(model(x)[0], y)
+    loss.backward()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    if mesh is not None:
+        parallel.average_gradients(model.parameters(), mesh)
+        loss = parallel.mean_over(loss.detach(), mesh)
+        grads = {k: DTensor.from_local(p.grad, mesh["model"], [model.tp_placements[k]],
+                                       run_check=False).full_tensor()
+                 for k, p in model.named_parameters()}
+    opt.step()
+    return float(loss.detach()), grads
+
+
+def _fno3d_train_case(rank, ref, model_parallel=2, **kw):
+    """dp × tp FNO3d against the unsharded port and JAX's unsharded step; the
+    replicated head's ``dense_1`` gets its whole gradient on every rank.
+    With ``padding`` the JAX step (unpadded) is not the reference. Against
+    JAX, by ``tests/test_torch_train.py``'s one-Adam-step rule: each leaf's
+    gradient within 1e-4 of its largest entry (at least 1 % of the model's
+    largest), and the parameters where JAX's gradient stands above its leaf's
+    fp32 noise and 100 × Adam's eps: below that the first update, -lr·g/(|g|
+    + eps), turns the gradient's roundoff into up to lr (one entry of 4,096
+    of ``convs.1.weight_0``, |g| = 6.4e-10, lies 1.5e-6 from JAX's in the
+    unsharded port too)."""
+    mesh = parallel.make_mesh(model_parallel=model_parallel)
+    x, y = (torch.from_numpy(ref[k]) for k in ("fno3d_x", "fno3d_y"))
+    single = _fno3d(ref["fno3d_init"], **kw)
+    loss_1, grads_1 = _fno3d_step(single, x, y)
+    model = parallel.shard_params(_fno3d(ref["fno3d_init"], **kw), mesh)
+    assert any(type(pl).__name__ == "Shard" for pl in model.tp_placements.values())
+    loss, grads = _fno3d_step(model, parallel.shard_batch(x, mesh),
+                              parallel.shard_batch(y, mesh), mesh)
+    got = parallel.gather_parameters(model)
+    _close(loss, loss_1, 1e-6, 0, "FNO3d loss against the unsharded port")
+    # the data ranks hold half the batch each: their gradients' mean is the whole's
+    _close(grads["head.dense_1.weight"], grads_1["head.dense_1.weight"], 1e-5, 1e-7,
+           "the replicated head.dense_1's gradient against the unsharded port")
+    for k, p in single.named_parameters():
+        _close(got[k], p.detach(), 1e-5, 1e-6, f"FNO3d {k} against the unsharded port")
+    if "padding" not in kw:
+        _close(loss, ref["fno3d_loss"], 1e-6, 0, "FNO3d loss against JAX")
+        floor = 1e-2 * max(np.abs(g).max() for g in ref["fno3d_grads"].values())
+        for k, p in single.named_parameters():
+            g_j = ref["fno3d_grads"][k]
+            leaf = max(np.abs(g_j).max(), floor)
+            _close(grads[k], g_j, 0, 1e-4 * leaf, f"FNO3d {k}.grad against JAX")
+            big = np.abs(g_j) > max(1e-3 * leaf, 1e-6)
+            _close(got[k].numpy()[big], ref["fno3d_new"][k][big], 1e-5, 1e-6,
+                   f"FNO3d {k} against JAX")
+
+
+def _fno3d_train_bf16_case(rank, ref):
+    """The dp × tp FNO3d step in bfloat16 against the unsharded port's, held
+    as ``_train_bf16_case`` holds the SFNO's: the loss to rtol 2⁻⁹, each
+    leaf's gradient no farther from the float32 step's than a bound times
+    the unsharded bfloat16 gradient's distance, the parameters to atol 2e-3.
+    The bound is 2, not the SFNO's 1.25: every FNO3d layer is column
+    parallel, and the gradient of its bfloat16 input is rounded twice (each
+    rank's partial in the layer's backward, then their sum) where the
+    unsharded layer rounds it once; the other roundings are shared, so the
+    distance at most doubles (measured on gloo: 1.55 at most, on
+    ``convs.1.weight_1``; 1.00 with the model axis of one rank)."""
+    mesh = parallel.make_mesh(model_parallel=2)
+    x, y = (torch.from_numpy(ref[k]) for k in ("fno3d_x", "fno3d_y"))
+    xs, ys = parallel.shard_batch(x, mesh), parallel.shard_batch(y, mesh)
+    _, grads_32 = _fno3d_step(_fno3d(ref["fno3d_init"]), x, y)
+    single = _fno3d(ref["fno3d_init"], compute_dtype="bfloat16")
+    loss_1, grads_1 = _fno3d_step(single, x, y)
+    model = parallel.shard_params(_fno3d(ref["fno3d_init"], compute_dtype="bfloat16"), mesh)
+    loss, grads = _fno3d_step(model, xs, ys, mesh)
+    got = parallel.gather_parameters(model)
+    assert np.isfinite(loss)
+    _close(loss, loss_1, 2**-9, 0, "FNO3d bfloat16 loss against the unsharded port")
+    for k, p in single.named_parameters():
+        g32 = grads_32[k]
+        err, err_1 = (float((g[k] - g32).abs().max()) for g in (grads, grads_1))
+        assert err <= 2 * err_1, (f"FNO3d {k}.grad: sharded bfloat16 {err:.3e} from "
+                                  f"float32, unsharded bfloat16 {err_1:.3e}")
+        _close(got[k], p.detach(), 0, 2e-3, f"FNO3d {k} (bfloat16) against the unsharded")
 
 
 def _pencil_fft_case(rank, ref):
@@ -331,7 +475,13 @@ CASES = {"mesh": _mesh_case, "params": _params_case, "train_step": _train_case,
          "train_step_bf16": _train_bf16_case,
          "solver": _solver_case, "pencil_fft": _pencil_fft_case,
          "pencil_step": _pencil_step_case, "finetune": _finetune_case,
-         "refusals": _refusal_case}
+         "refusals": _refusal_case, "fno3d_params": _fno3d_params_case,
+         "fno3d_train_step": _fno3d_train_case,
+         "fno3d_train_step_remat": lambda rank, ref: _fno3d_train_case(rank, ref, remat=True),
+         "fno3d_train_step_padding": lambda rank, ref: _fno3d_train_case(rank, ref, padding=2),
+         "fno3d_train_step_model4": lambda rank, ref: _fno3d_train_case(rank, ref,
+                                                                        model_parallel=4),
+         "fno3d_train_step_bf16": _fno3d_train_bf16_case}
 
 
 @pytest.fixture(scope="module")
@@ -361,13 +511,73 @@ def jax_refs():
         return optax.apply_updates(p, updates), loss
 
     new, loss = jax.device_get(step(params))
+    fno3d = _jax_fno3d_refs()
     # the sharded fine-tune test's inputs (tests/test_parallel.py:480-489); its
     # SFNO's init is this one (the same key and parameter shapes)
     w_in = np.random.default_rng(5).normal(size=(FT_BATCH, 16, 16, T_WIN)).astype(np.float32)
     as_np = lambda tree: {k: t.numpy() for k, t in  # noqa: E731
                           convert.sfno_state_dict_from_flax(jax.device_get(tree)).items()}
     return {"v": v, "y": y, "init": as_np(params), "new": as_np(new), "loss": float(loss),
-            "w_in": w_in}
+            "w_in": w_in, **fno3d}
+
+
+def _jax_fno3d_refs() -> dict:
+    """JAX's side of the FNO3d cases: ``sfno_param_spec`` on FNO3d's flax tree
+    at each of ``FNO3D_PLACEMENT_CASES`` as ``{port name: sharded dim or None}``
+    (through ``convert.py``'s names), and JAX's unsharded FNO3d train step on
+    its own init (before, after, the loss) as the port's state_dicts."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from tpu_cfd.models import FNO3d as JaxFNO3d
+    from tpu_cfd.parallel import mesh as jax_mesh
+    from tpu_cfd.train import losses as jax_losses
+    from tpu_cfd_torch import convert
+
+    specs = {}
+    for width, mp in FNO3D_PLACEMENT_CASES:
+        model = JaxFNO3d(4, 4, 2, width)
+        shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                jnp.zeros((1, 16, 16, 4, 13), jnp.float32))["params"]
+        mesh = jax_mesh.make_mesh(n_devices=4, model_parallel=mp)
+        flat = {tuple(getattr(k, "key", k) for k in path): jax_mesh.sfno_param_spec(
+                    path, leaf, mesh)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+        names = convert._key_map("FNO3d", shapes)  # flax path -> (port name, transposed)
+        dims = {}
+        for path, spec in flat.items():
+            name, transposed = names[path]
+            axes = [i for i, a in enumerate(spec) if a == "model"]
+            assert len(axes) <= 1, (path, spec)
+            dim = axes[0] if axes else None
+            dims[name] = dim if dim is None or not transposed else 1 - dim
+        for name in dims:  # a bias goes with its weight
+            if name.endswith(".bias"):
+                dims[name] = dims[name[:-len("bias")] + "weight"]
+        specs[f"{width}/{mp}"] = dims
+
+    model = JaxFNO3d(**FNO3D_KW)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(8, 16, 16, FNO3D_T, 13)).astype(np.float32)
+    y = rng.normal(size=(8, 16, 16, FNO3D_T)).astype(np.float32)
+    params = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(x))
+    loss_obj = jax_losses.SobolevLoss(n_grid=16, norm_order=0, relative=True)
+    opt = optax.adam(1e-3)
+
+    @jax.jit
+    def step(p):
+        loss, grads = jax.value_and_grad(
+            lambda q: loss_obj(model.apply(q, x)[0], y))(p)
+        updates, _ = opt.update(grads, opt.init(p))
+        return optax.apply_updates(p, updates), loss, grads
+
+    new, loss, grads = jax.device_get(step(params))
+    as_np = lambda tree: {k: t.numpy() for k, t in  # noqa: E731
+                          convert.fno3d_state_dict_from_flax(jax.device_get(tree)).items()}
+    return {"fno3d_specs": specs, "fno3d_x": x, "fno3d_y": y,
+            "fno3d_init": as_np(params), "fno3d_new": as_np(new),
+            "fno3d_grads": as_np({"params": grads["params"]}), "fno3d_loss": float(loss)}
 
 
 @pytest.fixture(scope="module")
@@ -380,8 +590,9 @@ def test_world4(world4, case):
     """data 2 × model 2 (``train_step_model4``: model 4): the mesh; parameters
     actually sharded; the train step against the unsharded port and JAX;
     the batch-sharded solver; the pencil FFT pair at 64² (33 columns over 2
-    ranks); the pencil step; the fine-tune; the refusals (FNO3d, a second
-    shard_params, a pencil field on the fused and matmul routes)."""
+    ranks); the pencil step; the fine-tune; the refusals (a module the port
+    does not know, a second shard_params, a pencil field on the fused and
+    matmul routes); FNO3d's placements against JAX's and its train steps."""
     assert world4[case] == "ok", world4[case]
 
 

@@ -350,3 +350,148 @@ def test_recipe_accuracy_fno3d_runs_the_examples_defaults():
     assert len(compared) >= 12
     differ = {k: (ours[k], defaults[k]) for k in compared if ours[k] != defaults[k]}
     assert not differ, f"recipe_accuracy.FNO3D differs from the example: {differ}"
+
+
+def _first_log_line(name: str) -> dict:
+    """``key=value`` pairs of a committed JAX log's first line."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    first = (root / "logs" / name).read_text().splitlines()[0]
+    text = first.split("Arguments: ", 1)[1] if "Arguments: " in first else \
+        first.split(" - INFO - ", 1)[1]
+    return dict(item.split("=", 1) for item in text.split(" | "))
+
+
+def _differ(ours: dict, logged: dict, skip, at_least: int) -> dict:
+    compared = [k for k in logged if k in ours and k not in skip]
+    assert len(compared) >= at_least, compared
+    return {k: (ours[k], logged[k]) for k in compared if ours[k] != _literal(logged[k])}
+
+
+def _script_command(script: str, command: str) -> list:
+    """The arguments that follow ``command`` in a committed shell script,
+    with its line continuations joined, up to the first redirection."""
+    import pathlib
+    import shlex
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    text = (root / "scripts" / script).read_text().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if command in ln)
+    tokens = shlex.split(line.split(command, 1)[1])
+    end = next((i for i, t in enumerate(tokens) if t.startswith(("2>", ">", "|"))),
+               len(tokens))
+    return tokens[:end]
+
+
+def test_recipe_accuracy_fno_training_runs_the_jax_logs_arguments():
+    """The FNO-data SFNO trains with the arguments of the JAX run it is
+    compared with (``logs/train_fno_ref_r4.log``, line 1)."""
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    ours = vars(train.get_parser().parse_args(
+        recipe_accuracy.FNO_TRAIN + ["--train-file", "dataset.npz"]))
+    differ = _differ(ours, _first_log_line("train_fno_ref_r4.log"),
+                     _LOG_KEYS_NOT_COMPARED, 30)
+    assert not differ, f"recipe_accuracy.FNO_TRAIN differs from the JAX log: {differ}"
+
+
+def test_recipe_accuracy_fno_eval_runs_the_jax_logs_arguments():
+    """The 256² zero-shot eval takes the arguments of the JAX run it is
+    compared with (``logs/eval_fno_256_r4.log``, line 1), the test file
+    apart (the recipe passes the one it generates)."""
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    ours = vars(train.get_parser().parse_args(
+        recipe_accuracy.FNO_EVAL + ["--train-file", "dataset.npz", "--test-file", "t.npz"]))
+    differ = _differ(ours, _first_log_line("eval_fno_256_r4.log"),
+                     _LOG_KEYS_NOT_COMPARED + ("test_file",), 30)
+    assert not differ, f"recipe_accuracy.FNO_EVAL differs from the JAX log: {differ}"
+    assert ours["eval_only"] and ours["double"]
+
+
+def test_recipe_accuracy_fno_test_set_runs_the_jax_logs_arguments():
+    """The fp64 FNO test set takes the arguments of the JAX run that made
+    the JAX package's (``logs/datagen_fp64_fno_r4.log``, line 1)."""
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    ours = vars(generate.get_parser("fno").parse_args(recipe_accuracy.FNO_FT_DATA))
+    differ = _differ(ours, _first_log_line("datagen_fp64_fno_r4.log"),
+                     ("filepath", "logpath", "filename"), 30)
+    assert not differ, f"recipe_accuracy.FNO_FT_DATA differs from the JAX log: {differ}"
+
+
+@pytest.mark.parametrize("which", ["dataset", "finetune"])
+def test_recipe_accuracy_fno_runs_the_scripts_arguments(which):
+    """The FNO dataset and the FNO-data fine-tune take the arguments of the
+    JAX runs' scripts (``scripts/r4_measure2.sh``'s ``generate fno`` and
+    ``scripts/r4_measure5.sh``'s FNO fine-tune; the script's test file and
+    checkpoint are the recipe's own), both parsed by the port's CLI."""
+    from tpu_cfd_torch.examples import ex2_sfno_finetune
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    if which == "dataset":
+        parser, ours = generate.get_parser("fno"), recipe_accuracy.FNO_GENERATE
+        theirs = _script_command("r4_measure2.sh", "tpu_cfd.data.generate fno")
+    else:
+        parser, ours = ex2_sfno_finetune.get_parser(), recipe_accuracy.FNO_FINETUNE
+        theirs = _script_command("r4_measure5.sh", "ex2_sfno_finetune.py --example fno")
+        theirs = ["--example", "fno", *theirs]
+    assert len(theirs) >= 6
+    want, got = (vars(parser.parse_args(a)) for a in (theirs, ours))
+    for k in ("test_file", "ckpt"):
+        want.pop(k, None), got.pop(k, None)
+    assert got == want, {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+
+
+def test_recipe_accuracy_stages():
+    """``--stages`` runs both recipes by default, or those named."""
+    from tpu_cfd_torch.train import recipe_accuracy
+
+    parse = recipe_accuracy.get_parser().parse_args
+    assert parse(["--data-dir", "d"]).stages == ["mcwilliams", "fno"]
+    assert parse(["--data-dir", "d", "--stages", "fno"]).stages == ["fno"]
+    assert parse(["--data-dir", "d", "--stages", "fno", "mcwilliams"]).stages == [
+        "fno", "mcwilliams"]
+    with pytest.raises(SystemExit):
+        parse(["--data-dir", "d", "--stages", "kolmogorov"])
+
+
+def test_recipe_accuracy_fno_stages_run_and_resume(tmp_path, monkeypatch, capsys):
+    """The FNO stages end to end on the CPU at 64² → 32² (8 samples, 50
+    records; one epoch; an fp64 64² test set of 90 records; 3 fine-tune
+    iterations), then again on the same directory, where each stage's record
+    is read back and nothing runs."""
+    from tpu_cfd_torch.train import recipe_accuracy as ra
+
+    def cut(argv, values):
+        return ra.override(argv, values) + ["--no-cuda"]
+
+    monkeypatch.setattr(ra, "FNO_GENERATE", cut(ra.FNO_GENERATE, {
+        "--grid-size": "64", "--subsample": "2", "--num-samples": "8", "--batch-size": "4",
+        "--time": "0.12", "--time-warmup": "0.02", "--num-steps": "50"}))
+    monkeypatch.setattr(ra, "FNO_TRAIN", cut(ra.FNO_TRAIN, {
+        "--epochs": "1", "--num-samples": "4", "--num-val-samples": "4", "--res": "32"}))
+    monkeypatch.setattr(ra, "FNO_FT_DATA", cut(ra.FNO_FT_DATA, {
+        "--grid-size": "64", "--num-samples": "2", "--batch-size": "2", "--time": "0.1",
+        "--time-warmup": "0.01", "--num-steps": "90"}))
+    monkeypatch.setattr(ra, "FNO_EVAL", cut(ra.FNO_EVAL, {
+        "--num-test-samples": "2", "--num-samples": "4", "--num-val-samples": "4",
+        "--test-res": "64"}))
+    monkeypatch.setattr(ra, "FNO_FINETUNE", cut(ra.FNO_FINETUNE, {
+        "--iters": "3", "--res": "64"}) + ["--modes-ft", "16", "16", "6"])
+    for var in ("MODEL_PATH", "LOG_PATH", "DATA_PATH"):
+        monkeypatch.setattr(tpipeline, var, str(tmp_path / var.lower()))
+    monkeypatch.setattr(train, "MODEL_PATH", str(tmp_path / "model_path"))
+    monkeypatch.setattr(train, "LOG_PATH", str(tmp_path / "log_path"))
+    monkeypatch.setattr(train, "DATA_PATH", str(tmp_path / "data_path"))
+    out = ra.fno(str(tmp_path))
+    assert np.isfinite(out["sfno"]["val_rel_l2"]) and len(out["sfno"]["history"]) == 1
+    assert np.isfinite(out["eval_256"]["test_rel_l2_256"])
+    ft = out["finetune"]
+    assert len(ft["history"]) == 4 and len(ft["iter_seconds"]) == 3
+    assert ft["best_iter_within_50"] == ft["best_iter"] and ft["best"] <= ft["iter0"]
+    assert np.isfinite([ft["gt_floor"], ft["zero_shot_rel_l2"], ft["best_over_gt_floor"]]).all()
+    capsys.readouterr()
+    assert ra.fno(str(tmp_path)) == out
+    assert capsys.readouterr().out.count("read back") == 5

@@ -410,15 +410,33 @@ def run_generation(
     return data_filepath
 
 
+# each dataset CLI's description and the defaults it sets over get_args_ns2d's
+_EXAMPLES = {
+    "mcwilliams": ("Generate NSE 2d decaying turbulence with McWilliams initial vorticity",
+                   dict(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
+                        diam=2 * math.pi, forcing="none")),
+    "kolmogorov": ("Generate NSE 2d Kolmogorov flow",
+                   dict(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
+                        diam=2 * math.pi, gamma=0.1, max_velocity=5.0)),
+    "fno": ("Generate the original FNO data for NSE in 2D",
+            dict(time=50.0, time_warmup=30.0, dt=1e-3, num_steps=100, diam=1.0,
+                 scale=0.1, alpha=2.5, tau=7.0, peak_wavenumber=1)),
+}
+
+
+def get_parser(example: str):
+    """The argument parser of the ``example`` dataset CLI (``mcwilliams``,
+    ``kolmogorov`` or ``fno``)."""
+    description, defaults = _EXAMPLES[example]
+    parser = data_utils.get_args_ns2d(description)
+    parser.set_defaults(**defaults)
+    return parser
+
+
 def main_mcwilliams(argv=None):
     """Decaying isotropic turbulence, McWilliams-1984 initial condition."""
-    parser = data_utils.get_args_ns2d(
-        "Generate NSE 2d decaying turbulence with McWilliams initial vorticity"
-    )
-    parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
-                        diam=2 * math.pi, forcing="none")
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = parser.parse_args(argv)
+    args = get_parser("mcwilliams").parse_args(argv)
     if args.data_parallel and not dist.is_initialized():
         return parallel.launch(main_mcwilliams, argv, cuda=not args.no_cuda)
 
@@ -438,11 +456,8 @@ def main_mcwilliams(argv=None):
 
 def main_kolmogorov(argv=None):
     """Forced Kolmogorov flow with a drag of 0.1."""
-    parser = data_utils.get_args_ns2d("Generate NSE 2d Kolmogorov flow")
-    parser.set_defaults(time=10.0, time_warmup=4.5, dt=1e-3, num_steps=100,
-                        diam=2 * math.pi, gamma=0.1, max_velocity=5.0)
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = parser.parse_args(argv)
+    args = get_parser("kolmogorov").parse_args(argv)
     if args.data_parallel and not dist.is_initialized():
         return parallel.launch(main_kolmogorov, argv, cuda=not args.no_cuda)
     diam = data_utils.parse_diam(args.diam)
@@ -474,11 +489,8 @@ def main_kolmogorov(argv=None):
 def main_fno(argv=None):
     """The FNO paper's dataset: GRF initial vorticity, SinCos forcing, IMEX
     order 2."""
-    parser = data_utils.get_args_ns2d("Generate the original FNO data for NSE in 2D")
-    parser.set_defaults(time=50.0, time_warmup=30.0, dt=1e-3, num_steps=100,
-                        diam=1.0, scale=0.1, alpha=2.5, tau=7.0, peak_wavenumber=1)
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = parser.parse_args(argv)
+    args = get_parser("fno").parse_args(argv)
     if args.data_parallel and not dist.is_initialized():
         return parallel.launch(main_fno, argv, cuda=not args.no_cuda)
     diam = data_utils.parse_diam(args.diam)

@@ -1,4 +1,11 @@
-"""Neural operators as ``torch.nn`` modules: the SFNO and the FNO3d baseline."""
+"""Neural operators as ``torch.nn`` modules: the SFNO and the FNO3d baseline.
+
+Counterpart of ``tpu_cfd/models``. Two of its names are functions of a flax
+parameter tree there and are the module's own here:
+``apply_with_latents(model, params, ...)`` is ``forward_with_latents(model,
+...)``, and ``params_to_double(params)`` is ``model.double()``
+(``torch.nn.Module.double``).
+"""
 
 from tpu_cfd_torch.models.base import (
     LayerNormnd,

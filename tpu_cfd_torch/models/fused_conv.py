@@ -8,7 +8,9 @@ tensor stay plain einsums, as the JAX function keeps them in XLA.
 
 Semantics are ``SpectralConv._dft_apply`` with ``t_pad=0`` and the output on
 the input mesh (the SpectralConvS configuration), for float32 inputs and
-``norm="backward"``.
+``norm="backward"``. ``fused_spectral_conv_s`` is differentiable (each
+kernel is the other's backward), so it is also what the JAX module's alias
+``fused_spectral_conv_s_vjp`` names.
 """
 
 from __future__ import annotations

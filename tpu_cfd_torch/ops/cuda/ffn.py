@@ -8,10 +8,11 @@ memory and the hidden activations in registers, so x is read once and the
 output written once (see its header for the bound and the design);
 ``ffn_layout`` is its shared-memory layout.
 
-``pointwise_ffn`` is a ``torch.autograd.Function``: its forward is the
-kernel on a CUDA tensor and the plain PyTorch version (``_ffn_plain``) on a
-CPU tensor; its backward is plain PyTorch matmuls on both, as the JAX
-kernel's VJP (``_ffn_bwd``) is plain XLA. Weights use ``nn.Linear``'s
+``pointwise_ffn`` (the JAX package's ``fused_pointwise_ffn``) is a
+``torch.autograd.Function``: its forward is the kernel on a CUDA tensor and
+the plain PyTorch version (``_ffn_plain``) on a CPU tensor; its backward is
+plain PyTorch matmuls on both, as the JAX kernel's VJP (``_ffn_bwd``) is
+plain XLA. Weights use ``nn.Linear``'s
 layout: w1 ``(H, K)``, w2 ``(K_out, H)``.
 
 The rows of x are float32 or bfloat16 and the output has their type; the

@@ -35,6 +35,12 @@ def rfft_mesh_2d(n: int, diam: float, dtype=torch.float32, device=None
     return kx[..., : k_max + 1], ky[..., : k_max + 1]
 
 
+def fft_expand_dims(fft_mesh: Tuple[Tensor, Tensor], batch_size: int
+                    ) -> Tuple[Tensor, Tensor]:
+    """Expands (x, y) meshes to (b, x, y, 1) for broadcasting over batches."""
+    return tuple(k[None, :, :, None].expand(batch_size, *k.shape, 1) for k in fft_mesh)
+
+
 def spectral_laplacian_2d(fft_mesh: Tuple[Tensor, Tensor]) -> Tensor:
     """Fourier symbol of the Laplacian: -4π²(kx²+ky²), with lap[0,0]=1.
 
@@ -55,6 +61,15 @@ def spectral_curl_2d(
     uhat, vhat_ = vhat
     kx, ky = rfft_mesh
     return 2j * math.pi * (vhat_ * kx - uhat * ky)
+
+
+def spectral_div_2d(
+    vhat: Tuple[Tensor, Tensor], rfft_mesh: Tuple[Tensor, Tensor]
+) -> Tensor:
+    """2-D divergence in the Fourier basis: 2πi (kx û + ky v̂)."""
+    uhat, vhat_ = vhat
+    kx, ky = rfft_mesh
+    return 2j * math.pi * (uhat * kx + vhat_ * ky)
 
 
 def spectral_grad_2d(

@@ -1,6 +1,6 @@
 """Data and tensor parallelism over ``torch.distributed``: meshes, batch
-shards, the CLIs' launch rule, the SFNO's parameters sharded on the
-``model`` axis and pencil-sharded solver fields (counterpart of
+shards, the CLIs' launch rule, the SFNO's and FNO3d's parameters sharded
+on the ``model`` axis and pencil-sharded solver fields (counterpart of
 ``tpu_cfd/parallel``)."""
 
 from tpu_cfd_torch.parallel.launch import launch

@@ -11,9 +11,9 @@ all-reduce is ``DistributedDataParallel``'s; ``average_gradients`` is the
 explicit one of a model whose parameters are sharded on ``model``.
 
 Tensor parallelism: ``model_parallel`` ranks next to each other form a
-``model`` group. ``sfno_param_spec`` places each SFNO parameter (``Shard``
-of its output channels, or ``Replicate``), and ``shard_params`` leaves each
-rank its shard and makes the model compute with it
+``model`` group. ``sfno_param_spec`` places each SFNO or FNO3d parameter
+(``Shard`` of its output channels, or ``Replicate``), and ``shard_params``
+leaves each rank its shard and makes the model compute with it
 (``parallel/tensor_parallel.py``). ``shard_field_spatial`` splits a solver
 field's rows over ``model`` (pencil FFTs, ``parallel/pencil.py``).
 """
@@ -144,14 +144,19 @@ def average_gradients(params: Iterable[torch.Tensor], mesh: DeviceMesh,
 
 
 def sfno_layout(name: str, param: torch.Tensor, n_model: int) -> Placement:
-    """Where the tensor-parallel SFNO splits ``param`` over ``n_model``
-    ranks, by the port's names (``convert.py``): JAX's rule
+    """Where the tensor-parallel SFNO or FNO3d splits ``param`` over
+    ``n_model`` ranks, by the port's names (``convert.py``): JAX's rule
     (``tpu_cfd/parallel/mesh.py::sfno_param_spec``) in the port's layouts.
 
     - A spectral block ``weight_{i}`` ``(*modes, c_i, c_o, 2)``: ``Shard`` of
       ``c_o`` (dim −2) where ``n_model`` divides it.
     - An ``nn.Linear``: ``Shard(0)`` of ``weight`` ``(out, in)`` and of its
-      bias where ``n_model`` divides ``out``.
+      bias where ``n_model`` divides ``out``. JAX shards the Dense kernel
+      ``(in, out)`` on ``out`` and replicates the bias; the port shards the
+      bias with its output channels, so that each rank adds its own. This
+      covers FNO3d's lifting, skips and both layers of each ``MLP3d``
+      (``mlps.{i}``, ``head``: column layout, as JAX's), so the head's
+      ``dense_1`` (128 → 1) stays replicated.
     - A ``PointwiseFFN`` (``dense_0``, ``dense_1``), Megatron's MLP: ``dense_0``
       sharded on its output (the hidden units), ``dense_1``'s ``weight`` on its
       input (the same units, ``Shard(1)``) and its bias replicated, added once
@@ -178,8 +183,9 @@ def sfno_layout(name: str, param: torch.Tensor, n_model: int) -> Placement:
 
 
 def sfno_param_spec(name: str, param: torch.Tensor, mesh: DeviceMesh) -> Placement:
-    """The placement of an SFNO parameter on the ``model`` axis: ``Replicate()``
-    for every parameter where that axis has one rank, else ``sfno_layout``."""
+    """The placement of an SFNO or FNO3d parameter on the ``model`` axis:
+    ``Replicate()`` for every parameter where that axis has one rank, else
+    ``sfno_layout``."""
     n_model = axis_size(mesh, "model")
     return Replicate() if n_model == 1 else sfno_layout(name, param, n_model)
 
@@ -189,11 +195,11 @@ def shard_params(model: nn.Module, mesh: DeviceMesh, spec_fn=sfno_param_spec) ->
     param, mesh)``, in place: each rank keeps only its shard of a sharded
     parameter, and the model computes with its shards (collectives over the
     model group, ``parallel/tensor_parallel.py``). Replicated parameters stay
-    as they are. Only the SFNO is known; another module raises. Returns
-    ``model``."""
+    as they are. The SFNO and FNO3d are known (``tensor_parallel.MODELS``);
+    another module raises ``TypeError``. Returns ``model``."""
     from tpu_cfd_torch.parallel import tensor_parallel
 
-    return tensor_parallel.shard_sfno(model, mesh, spec_fn)
+    return tensor_parallel.shard_model(model, mesh, spec_fn)
 
 
 def sharded_parameters(model: nn.Module) -> dict:

@@ -1,23 +1,26 @@
-"""Tensor parallelism of the SFNO over the ``model`` axis of a mesh.
+"""Tensor parallelism of the SFNO and of FNO3d over the ``model`` axis of a mesh.
 
-The port's counterpart of what XLA does for ``tpu_cfd``'s sharded SFNO
-parameters (``tpu_cfd/parallel/mesh.py::shard_params``): JAX places the
-arrays and XLA inserts the collectives; here each rank keeps its shard of a
-parameter (``shard_sfno``, through ``parallel.shard_params``) and the
+The port's counterpart of what XLA does for ``tpu_cfd``'s sharded SFNO and
+FNO3d parameters (``tpu_cfd/parallel/mesh.py::shard_params``): JAX places
+the arrays and XLA inserts the collectives; here each rank keeps its shard
+of a parameter (``shard_model``, through ``parallel.shard_params``) and the
 layers that hold shards run their collectives over the model group:
 
-- a spectral conv (``SpectralConvS``, ``SpectralConvT``) or an
-  ``nn.Linear`` sharded on its output channels takes its replicated input
+- a spectral conv (``SpectralConvS``, ``SpectralConvT``, ``SpectralConv3d``)
+  or an ``nn.Linear`` sharded on its output channels takes its replicated input
   through ``copy_to_model``, computes its channels with its own forward
   (the DFT kernel pair, ``torch.fft`` or the einsums, by the route its local
-  shape names) and ``gather_channels`` assembles the output;
+  shape names) and ``gather_channels`` assembles the output. FNO3d's layers
+  are all of this kind: its ``MLP3d`` is two such ``nn.Linear``, each
+  sharded on its output as in JAX, since no kernel runs on its hidden units;
 - a ``PointwiseFFN`` is Megatron's MLP: each rank runs the fused FFN kernel
   on its hidden units, ``reduce_partial`` sums the partial outputs in
   float32, and the second bias is added once, after the sum (with bfloat16
   rows the output is rounded twice: each rank's partial by the kernel, the
   sum once more, where the unsharded kernel rounds once);
-- the LayerNorm, the positional encoding, the activations and everything
-  between the sharded layers run replicated on every rank of the group.
+- the LayerNorm, the positional encoding, the activations, FNO3d's padding
+  and everything between the sharded layers run replicated on every rank of
+  the group.
 
 So every rank of a model group holds the same activations and the same
 gradients of its replicated parameters. The data axis is not DDP's (DDP
@@ -35,10 +38,13 @@ from torch import nn
 from torch.distributed.tensor import Replicate, Shard
 
 from tpu_cfd_torch.models.base import PointwiseFFN, SpectralConv
+from tpu_cfd_torch.models.fno3d import FNO3d
 from tpu_cfd_torch.models.sfno import SFNO
 from tpu_cfd_torch.parallel.mesh import axis_size
 
 Tensor = torch.Tensor
+# the models whose layers shard_model knows
+MODELS = (SFNO, FNO3d)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -143,16 +149,18 @@ def _column_sharded(p: dict, dims: dict) -> bool:
                      f"replicated, not {p}")
 
 
-def shard_sfno(model: nn.Module, mesh, spec_fn) -> nn.Module:
-    """``parallel.shard_params`` for the SFNO: places each parameter by
-    ``spec_fn(name, param, mesh)``, keeps the rank's shard of each sharded
-    one, and sets up each sharded layer's collectives (module docstring).
+def shard_model(model: nn.Module, mesh, spec_fn) -> nn.Module:
+    """``parallel.shard_params`` for the SFNO and FNO3d: places each
+    parameter by ``spec_fn(name, param, mesh)``, keeps the rank's shard of
+    each sharded one, and sets up each sharded layer's collectives (module
+    docstring). A layer may stay replicated beside sharded ones (FNO3d of
+    width 10 on a model axis of 4 shards only its head's hidden units).
     Records the placements in ``model.tp_placements`` and the mesh in
     ``model.tp_mesh``."""
-    if not isinstance(model, SFNO):
+    if not isinstance(model, MODELS):
         raise TypeError(
-            f"shard_params knows the SFNO's layers only, not {type(model).__name__}'s; "
-            "tensor parallelism of FNO3d is ROADMAP.md Queue A item 8")
+            f"shard_params knows the layers of {', '.join(m.__name__ for m in MODELS)}, "
+            f"not {type(model).__name__}'s")
     if getattr(model, "tp_mesh", None) is not None:
         raise ValueError("shard_params: the model is sharded already")
     n, r = axis_size(mesh, "model"), mesh.get_local_rank("model")
