@@ -29,6 +29,7 @@ from tpu_cfd_torch.ops.spectral import (
     spectral_laplacian_2d,
     spectral_rot_2d,
 )
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Tensor = torch.Tensor
 Grid = grids.Grid
@@ -422,38 +423,41 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
                 ) -> Tuple[Tensor, Tensor]:
         """Marches ``steps`` steps; returns (ŵ_new, ∂ŵ/∂t estimate). A
         spectrum that ``parallel.shard_field_spatial`` sharded on its rows
-        steps by pencil FFTs (``parallel/pencil.py``), sharded as it came."""
-        if type(vort_hat) is not torch.Tensor:
-            from torch.distributed.tensor import DTensor
+        steps by pencil FFTs (``parallel/pencil.py``), sharded as it came.
+        One ``solver.forward`` span (``utils.trace_annotation``) covers the
+        call."""
+        with trace_annotation("solver.forward"):
+            if type(vort_hat) is not torch.Tensor:
+                from torch.distributed.tensor import DTensor
 
-            if isinstance(vort_hat, DTensor):
-                from tpu_cfd_torch.parallel import pencil
+                if isinstance(vort_hat, DTensor):
+                    from tpu_cfd_torch.parallel import pencil
 
-                return pencil.forward(self, vort_hat, dt, steps)
-        shape_in = tuple(vort_hat.shape[-2:])
-        vort_hat = self._align(vort_hat)
-        vort_old = vort_hat
-        if self.fused:
-            from tpu_cfd_torch.ops.cuda import spectral_step
+                    return pencil.forward(self, vort_hat, dt, steps)
+            shape_in = tuple(vort_hat.shape[-2:])
+            vort_hat = self._align(vort_hat)
+            vort_old = vort_hat
+            if self.fused:
+                from tpu_cfd_torch.ops.cuda import spectral_step
 
-            f_hat = self._forcing_term() if self.forcing_fn is not None else None
-            rollout = (
-                spectral_step.fused_rollout_galerkin
-                if self.fft_impl == "dft_galerkin"
-                else spectral_step.fused_rollout_aligned
+                f_hat = self._forcing_term() if self.forcing_fn is not None else None
+                rollout = (
+                    spectral_step.fused_rollout_galerkin
+                    if self.fft_impl == "dft_galerkin"
+                    else spectral_step.fused_rollout_aligned
+                )
+                vort_hat = rollout(
+                    vort_hat, grid=self.grid, viscosity=self.viscosity,
+                    drag=self.drag, dt=dt, steps=steps, forcing_hat=f_hat,
+                    precision=self.mxu_precision, block_cols=self.fused_block_cols,
+                )
+            else:
+                for _ in range(steps):
+                    vort_hat = self.solver(vort_hat, dt, self)
+            dvortdt_hat = 1 / (steps * dt) * (vort_hat - vort_old)
+            return (
+                self._unalign(vort_hat, shape_in),
+                self._unalign(dvortdt_hat, shape_in),
             )
-            vort_hat = rollout(
-                vort_hat, grid=self.grid, viscosity=self.viscosity,
-                drag=self.drag, dt=dt, steps=steps, forcing_hat=f_hat,
-                precision=self.mxu_precision, block_cols=self.fused_block_cols,
-            )
-        else:
-            for _ in range(steps):
-                vort_hat = self.solver(vort_hat, dt, self)
-        dvortdt_hat = 1 / (steps * dt) * (vort_hat - vort_old)
-        return (
-            self._unalign(vort_hat, shape_in),
-            self._unalign(dvortdt_hat, shape_in),
-        )
 
     __call__ = forward

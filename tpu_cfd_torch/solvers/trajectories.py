@@ -18,6 +18,7 @@ import torch
 
 from tpu_cfd_torch.ops.spectral import vorticity_to_velocity
 from tpu_cfd_torch.solvers.equations import ImplicitExplicitODE
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Tensor = torch.Tensor
 
@@ -206,7 +207,9 @@ def get_trajectory_imex_chunked(
 
     The record schedule is the same. ``postprocess`` (e.g. irfft2 + spatial
     subsample) runs on each chunk before it is copied to the host, so
-    full-resolution spectral records never accumulate on the device.
+    full-resolution spectral records never accumulate on the device. Spans
+    (``utils.trace_annotation``): ``gen.record`` around a chunk's stacking,
+    ``postprocess`` and host copy, ``gen.to_host`` around the copy alone.
 
     Returns (records dict of stacked host numpy arrays, final ŵ).
     """
@@ -225,10 +228,12 @@ def get_trajectory_imex_chunked(
                 w, dt, steps=lead_steps if i == 0 else record_every_steps)
             ws.append(w)
             dwdts.append(dwdt)
-        traj = _stack_records(equation, torch.stack(ws), torch.stack(dwdts), fields)
-        if postprocess is not None:
-            traj = postprocess(traj)
-        chunks.append({k: v.cpu().numpy() for k, v in traj.items()})
+        with trace_annotation("gen.record"):
+            traj = _stack_records(equation, torch.stack(ws), torch.stack(dwdts), fields)
+            if postprocess is not None:
+                traj = postprocess(traj)
+            with trace_annotation("gen.to_host"):
+                chunks.append({k: v.cpu().numpy() for k, v in traj.items()})
         lead_steps = record_every_steps
         remaining -= n_recs
     out = {k: np.concatenate([c[k] for c in chunks], axis=-3) for k in chunks[0]}

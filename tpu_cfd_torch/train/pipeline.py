@@ -18,6 +18,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tpu_cfd_torch.utils.profiling import trace_annotation
+
 Tensor = torch.Tensor
 
 SRC_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -119,29 +121,40 @@ def onecycle_lr(optimizer: torch.optim.Optimizer, max_lr: float,
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer, scheduler=None,
                     grad_clip: float = 0.0):
-    """Returns ``step(inp, target) -> loss`` (a 0-d tensor; no host sync)."""
+    """Returns ``step(inp, target) -> loss`` (a 0-d tensor; no host sync).
+
+    Spans (``utils.trace_annotation``): ``train.step`` around the step,
+    holding ``train.forward`` (model and loss), ``train.backward`` (autograd
+    launches the backward's kernels from its own thread while this span is
+    open) and ``train.optimizer`` (clipping, optimizer and schedule)."""
 
     def step(inp: Tensor, target: Tensor) -> Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(inp), target)
-        loss.backward()
-        if grad_clip and grad_clip > 0:
-            torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return loss.detach()
+        with trace_annotation("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with trace_annotation("train.forward"):
+                loss = loss_fn(model(inp), target)
+            with trace_annotation("train.backward"):
+                loss.backward()
+            with trace_annotation("train.optimizer"):
+                if grad_clip and grad_clip > 0:
+                    torch.nn.utils.clip_grad_norm_(model.parameters(), grad_clip)
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
+            return loss.detach()
 
     return step
 
 
 def make_eval_step(model: torch.nn.Module, metric_fn: Callable,
                    out_steps: Optional[int] = None):
-    """Returns ``step(inp, target) -> metric`` under ``torch.no_grad``."""
+    """Returns ``step(inp, target) -> metric`` under ``torch.no_grad``, in a
+    ``train.eval`` span."""
 
     @torch.no_grad()
     def step(inp: Tensor, target: Tensor) -> Tensor:
-        return metric_fn(model(inp, out_steps=out_steps), target)
+        with trace_annotation("train.eval"):
+            return metric_fn(model(inp, out_steps=out_steps), target)
 
     return step
 
@@ -220,14 +233,20 @@ def make_device_epoch(model, loss_fn: Callable, optimizer, data: Tensor,
     (data parallelism, the model wrapped in ``DistributedDataParallel``),
     every rank is given the same arrays, gathers its slice of each batch,
     and the losses come back as their mean over the ranks: the global
-    batch's mean where the batch divides evenly.
+    batch's mean where the batch divides evenly. Each step's window gather
+    is a ``train.gather`` span.
     """
     gather = _window_gather(data, steps, out_steps)
     step = make_train_step(model, loss_fn, optimizer, scheduler, grad_clip)
 
+    def gathered(i: Tensor, s: Tensor):
+        with trace_annotation("train.gather"):
+            return gather(i, s)
+
     def run(idx: np.ndarray, starts: np.ndarray) -> Tensor:
         idx_d, starts_d = _epoch_arrays(idx, starts, data.device, mesh)
-        losses = [step(*gather(i, s)) for i, s in zip(idx_d, starts_d)]
+        # a step's windows are freed as it returns, before the next gather
+        losses = [step(*gathered(i, s)) for i, s in zip(idx_d, starts_d)]
         losses = torch.stack(losses) if losses else data.new_zeros((0,))
         return losses if mesh is None else mean_over_ranks(losses)
 
