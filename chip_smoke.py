@@ -37,7 +37,8 @@ printing no result, when either is missing or any phase fails:
    kernel pair, each transform on its fused kernel, or the ``torch.fft``
    arithmetic);
 7. times every kernel beside its bound (by bytes, or by operations at the
-   faster of FFMA and 3xTF32 on the tensor cores, both kept; the FFN also by
+   faster of FFMA and 3xTF32 on the tensor cores, both kept; the advection
+   kernel's FFT-rule operations at FFMA alone; the FFN also by
    its device time, without the wrapper's host time), its plain
    version and the library call (the DFT pair at main path 3's m=12 too,
    and each transform on its two-pass route beside the fused one), the
@@ -173,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -947,9 +949,11 @@ def main() -> int:
         "spectral_advect": (
             lambda: ss.advect(A, c, jc),
             lambda: ss._advect_plain(A, c),
-            # 4 last-axis inverses (16 n^2 m) + one forward (4 n^2 m)
-            B * 20 * N * N * m,
-            B * 4 * N * m * 8 + 2 * m * N * 4 + N * m * 8 + B * N * m * 8),
+            # by the FFT rule, as the kernel does it: 2.5 complex n-point FFTs
+            # a row (5 n log2 n each) and the product (3 a point); A read
+            # and T written once (the twiddle table is a few KB)
+            B * (N * 2.5 * 5 * N * math.log2(N) + 3 * N * N),
+            B * 4 * N * m * 8 + B * N * m * 8),
         "spectral_forward_first": (
             lambda: ss.forward_first(T, wk, hk, c, 1),
             lambda: ss._forward_first_plain(T, w, h, c, 1),
@@ -1437,7 +1441,8 @@ def main() -> int:
             r["device_ms"] = device_ms(kern, "ffn_kernel")
         r["plain_ms"] = cuda_ms(plain, 20)
         r["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
-        r.update(_bound(flops, nbytes))
+        # K2's FFTs are no product: their flops are bound at FFMA
+        r.update(_bound(flops, nbytes, product=name != "spectral_advect"))
     chain_ms = cuda_ms(chain, 20)
 
     # the RK4-CN stage's kernels in both layouts at b=32, and the rollouts
@@ -2089,7 +2094,7 @@ def main() -> int:
     _require(demo_launches == want, f"demo launches {demo_launches}, expected {want}")
 
     # the demo's kernel instances at its own shapes, each against its plain
-    # version: the 128^2 b4 rollout from the CLI's IC (advect_layout tiles
+    # version: the 128^2 b4 rollout from the CLI's IC (advect_layout blocks
     # 128^2 otherwise than 256^2), the DFT pair at 64^2 m12 on the train
     # step's and the prediction's planes, the FFN's instance on their rows
     dsz, db = int(g["--grid-size"]), int(g["--batch-size"])
@@ -2448,14 +2453,14 @@ def main() -> int:
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     advect = sum(1 for e in events if e.get("cat") == "kernel"
-                 and "advect_kernel" in e.get("name", ""))
+                 and "advect_fft_kernel" in e.get("name", ""))
     annotated = any(e.get("name") == "rollout" for e in events)
     summary = profiling.device_memory_summary().splitlines()
     util_row = {"timer_s": util_t["seconds"], "trace_advect_kernels": advect,
                 "advect_launches": traced_launches, "annotation": annotated,
                 "memory_total": summary[-1].strip(), "memory_lines": len(summary) - 1}
     print(f"phase 16: profile_to wrote {os.path.basename(traces[0])}: {advect} "
-          f"spectral_advect kernels (advect_kernel) of the {traced_launches} launched in "
+          f"spectral_advect kernels (advect_fft_kernel) of the {traced_launches} launched in "
           f"10 steps, annotation {annotated}; device_memory_summary: "
           f"{summary[-1].strip()}", flush=True)
     _require(traced_launches == 50 and 0 < advect <= traced_launches and annotated,

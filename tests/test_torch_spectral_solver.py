@@ -214,19 +214,27 @@ class TestLayouts:
             teq.NavierStokes2DSpectral(viscosity=1e-3, grid=tg)
 
     def test_recommended_fft_impl(self):
-        # the H100 table: the fused kernel up to 256² (aligned at 64², b >= 32),
-        # torch.fft at 256², b=128 and from 512² up
+        # the H100 table: the fused kernel on the Galerkin block up to 256²
+        # and at 512², b=8; torch.fft at 512² from b=32 and at 1024²
         assert teq.recommended_fft_impl(256, 32) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(256, 8) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(64, 1) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(128, 128) == "dft_galerkin_fused"
-        assert teq.recommended_fft_impl(64, 32) == "dft_aligned_fused"
-        assert teq.recommended_fft_impl(256, 128) == "fft"
-        assert teq.recommended_fft_impl(512, 8) == "fft"
+        assert teq.recommended_fft_impl(64, 32) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(256, 128) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(512, 8) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(512, 32) == "fft"
         assert teq.recommended_fft_impl(1024, 32) == "fft"
         assert teq.recommended_fft_impl(4096, 1) == "fft"
         assert teq.recommended_fft_impl(256, 32, double=True) == "fft"
         assert teq.recommended_fft_impl(256, 32, dealias=False) == "fft"
+
+    def test_recommended_fft_impl_needs_a_size_the_kernel_takes(self):
+        # the fused rollout's advection kernel takes n a power of two from 16
+        # to 2048; elsewhere the default is the fastest route without it
+        for n, b in ((96, 32), (96, 8), (200, 8), (3000, 32), (4096, 1)):
+            assert not teq.recommended_fft_impl(n, b).endswith("_fused")
+            assert teq.recommended_fft_impl(n, b) == teq.recommended_unfused_impl(n, b)
 
     @pytest.mark.parametrize("n,b", sorted(teq._H100_MS_PER_STEP))
     def test_recommended_impls_are_the_measured_fastest(self, n, b):
@@ -236,8 +244,12 @@ class TestLayouts:
         unfused = teq.recommended_unfused_impl(n, b)
         assert not unfused.endswith("_fused")
         assert all(ms[unfused] <= t for r, t in ms.items() if not r.endswith("_fused"))
-        # between measured points the nearer one (in log2) answers
-        assert teq.recommended_fft_impl(int(n * 1.2), int(b * 1.2) + 1) == best
+        # between measured points the nearer one (in log2) answers; an n
+        # between powers of two takes its fastest unfused route, as the fused
+        # rollout's advection kernel takes only powers of two
+        assert teq.recommended_fft_impl(n, int(b * 1.2) + 1) == best
+        assert teq.recommended_fft_impl(int(n * 1.2), int(b * 1.2) + 1) == (
+            unfused if best.endswith("_fused") else best)
 
 
 class TestTrajectories:

@@ -6,7 +6,10 @@ it) and against the JAX unfused solver, on the same numpy inputs:
 rel-L2 < 5e-6 against JAX "highest", < 1e-3 against JAX "high"
 (the tolerances of tests/test_fused_step.py). The CUDA kernels themselves
 run only on the card: the test marked ``cuda`` holds them against the plain
-version there and skips here.
+version there and skips here. What the card's advection kernel (K2) computes
+by FFTs is held here instead: its packing of rows into complex transforms
+(with ``torch.fft``) against the plain version, its Stockham passes and
+twiddle table against ``numpy.fft``, and its block layout rule.
 """
 
 import jax
@@ -146,8 +149,13 @@ def test_block_cols_validation():
         tss.fused_rollout_galerkin(w, block_cols=12, **kw)
     assert tss.resolve_block_cols("auto", 256, 86) == 64
     assert tss.resolve_block_cols(None, 256, 86) == 256
-    with pytest.raises(ValueError, match="shared memory"):
-        tss.resolve_block_cols(None, 4096, 2048)
+    # the card's K2 takes whole rows whatever block_cols, and refuses only
+    # an n it does not take; the CPU path validates block_cols for any n
+    assert tss.resolve_block_cols(None, 4096, 2048) == 4096
+    assert tss.resolve_block_cols("auto", 96, 32) == 32
+    for n in (96, 4096):
+        with pytest.raises(ValueError, match="power of two"):
+            tss.advect_layout(n)
 
 
 def test_input_validation():
@@ -224,40 +232,207 @@ def test_kernels_match_plain_on_the_card(layout):
     assert _rel(got.cpu().numpy(), want.cpu().numpy()) < 5e-6
 
 
+def _k2_fill(rows, tx, threads, nbytes):
+    """The share of an H100's block slots that ``rows`` rows in K2 blocks of
+    ``tx`` rows keep busy: 132 SMs, 16 warps an SM under K2's launch bounds
+    (128 registers a thread), 233,472 bytes of shared memory an SM less 1 KB
+    a block; one wave spread over the SMs, or whole waves."""
+    per_sm = min(233_472 // (nbytes + 1024), 16 * 32 // threads, 32)
+    blocks = -(-rows // tx)
+    live = rows / (blocks * tx)
+    if blocks <= 132 * per_sm:
+        return live * blocks / (132 * -(-blocks // 132))
+    return live * blocks / (132 * per_sm * -(-blocks // (132 * per_sm)))
+
+
 def test_advect_layout_by_shape():
-    """K2's shared-memory rule: 32 rows a block at 256^2 in both layouts
-    (3 and 4 passes over T's 2m columns; two blocks an SM fit at Galerkin),
-    8 at 1024^2, each within one block's 227 KB; a spectrum too wide for 8
-    rows is refused with a message."""
-    rows, m = tdft.galerkin_block(256)
-    assert tss.advect_layout(256, m, 64) == (32, 3, 114_192)
-    assert 2 * (114_192 + 1024) <= 233_472        # two blocks an SM, 1 KB each reserved
-    assert tss.advect_layout(256, 128, 64) == (32, 4, 156_432)
-    assert tss.advect_layout(256, m, 256)[0] == 32    # block_cols=None: whole rows
-    m1024 = tdft.galerkin_block(1024)[1]
-    for mm in (m1024, 512):                           # 1024^2: Galerkin, aligned
-        tx, passes, nbytes = tss.advect_layout(1024, mm, 64)
-        assert tx == 8 and passes <= 12 and nbytes <= tss._MAX_SMEM
-        assert tss.resolve_block_cols("auto", 1024, mm) == 64
-    for n, mm in ((256, m), (256, 128), (512, 171), (1024, m1024), (32, 11)):
-        tx, passes, nbytes = tss.advect_layout(n, mm, 64)
-        cols = 4 * (256 // min(tx, 16))
-        assert passes * cols >= 2 * mm > (passes - 1) * cols
-        fr = max(f for f in (1, 2, 4, 8, 16) if f == 1 or f * passes * cols <= 1024)
-        k1p = -(-2 * mm // 16) * 16
-        slot = max(1024, fr * passes * cols)
-        assert nbytes == 4 * (k1p * (4 * tx + 4) + 3 * slot + (64 + fr) * (tx + 1))
-    assert tss.advect_layout(2048, 1024, 64) is None
-    with pytest.raises(ValueError, match="shared memory"):
-        tss.resolve_block_cols("auto", 2048, 1024)
+    """K2's block rule: n/16 threads a row, the fewest rows a block that pair
+    up and make a whole warp, two padded rows of n points a physical row in
+    shared memory, within one block's 232,448 bytes; at 256², b=32 the
+    blocks fill the 132 SMs in whole waves (two of 2,112, the second 94 %
+    full: no power of two fills 132 exactly), and no larger block fills them
+    better at any batch; n must be a power of two from 16 to 2048."""
+    assert tss.advect_layout(256) == (2, 32, 8_704)
+    assert _k2_fill(32 * 256, 2, 32, 8_704) == 4096 / (2 * 2112) > 0.96
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048):
+        g = n // 16
+        stride = tss._k2_row_floats(n)
+        assert stride >= 2 * (n + n // 16)
+        if g < 16:  # rows sharing a half-warp start on distinct banks
+            assert stride % 16 == g
+        tx, threads, nbytes = tss.advect_layout(n)
+        assert tx % 2 == 0 and threads == tx * g == max(32, 2 * g)
+        assert nbytes == tx * stride * 8 <= 232_448
+        for b in (1, 3, 8, 32, 128):
+            best = _k2_fill(b * n, tx, threads, nbytes)
+            for big in (2 * tx, 4 * tx, 8 * tx):
+                if big * g <= 256:
+                    assert _k2_fill(b * n, big, big * g, big * stride * 8) <= best
+    assert tss.advect_layout(1024)[:2] == (2, 128)
+    for n in (8, 96, 100, 4096):
+        assert not tss.advect_takes(n)
+        with pytest.raises(ValueError, match="power of two from 16 to 2048"):
+            tss.advect_layout(n)
+
+
+def _hermitian(a, d, n):
+    """The spectrum of the complex row a + i d from the kept bins of two real
+    rows: Z[c] = a_c + i d_c, Z[n - c] = conj(a_c) + i conj(d_c), bin 0
+    Re a_0 + i Re d_0 (its imaginary parts dropped), zero elsewhere."""
+    m = a.shape[-1]
+    z = torch.zeros(a.shape[:-1] + (n,), dtype=a.dtype)
+    z[..., 1:m] = a[..., 1:m] + 1j * d[..., 1:m]
+    z[..., n - m + 1:] = torch.flip(a[..., 1:m].conj() + 1j * d[..., 1:m].conj(), [-1])
+    z[..., 0] = a[..., 0].real + 1j * d[..., 0].real
+    return z
+
+
+def _advect_packed(A, n, by_size=True, dtype=torch.complex128):
+    """K2's function by the card kernel's scheme, with torch.fft in
+    ``dtype``: two complex inverse transforms a row, z1 = u + i v and
+    z2 = ∂ω/∂x + i ∂ω/∂y (``by_size``; else u + i ∂ω/∂x and v + i ∂ω/∂y), the
+    product -(u ∂ω/∂x + v ∂ω/∂y) read from their real and imaginary parts,
+    and rows x, x + 1 in one forward transform Y of adv_x + i adv_{x+1},
+    split as T_x = (Y[c] + conj Y[n - c]) / 2 and
+    T_{x+1} = (Y[c] - conj Y[n - c]) / 2i."""
+    u, v, gx, gy = A.to(dtype).unbind(1)
+    if by_size:
+        z1 = torch.fft.ifft(_hermitian(u, v, n), dim=-1)
+        z2 = torch.fft.ifft(_hermitian(gx, gy, n), dim=-1)
+        adv = -(z1.real * z2.real + z1.imag * z2.imag)
+    else:
+        z1 = torch.fft.ifft(_hermitian(u, gx, n), dim=-1)
+        z2 = torch.fft.ifft(_hermitian(v, gy, n), dim=-1)
+        adv = -(z1.real * z1.imag + z2.real * z2.imag)
+    Y = torch.fft.fft(adv[:, 0::2] + 1j * adv[:, 1::2], dim=-1)
+    m = A.shape[-1]
+    yc = Y[..., :m]
+    ym = torch.roll(torch.flip(Y, [-1]), 1, -1)[..., :m].conj()  # conj Y[(n - c) % n]
+    T = torch.empty(A.shape[0], n, m, dtype=dtype)
+    T[:, 0::2], T[:, 1::2] = (yc + ym) / 2, (yc - ym) / 2j
+    return T.to(torch.complex64)
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n", [16, 32, 64, 256])
+def test_packed_fft_scheme_matches_plain(layout, n):
+    """The card kernel's packing of rows into complex FFTs computes the plain
+    version's function, bin 0's imaginary part ignored as ``inv_last_im``'s
+    zero row ignores it (rel-L2 < 1e-5, batch 3)."""
+    grid = tgrids.Grid((n, n), domain=DOMAIN)
+    c = tss.constants(layout, grid, 1e-3, 0.0, DT, "cpu")
+    gen = torch.Generator().manual_seed(n)
+    A = torch.randn(3, 4, n, c["m"], dtype=torch.complex64, generator=gen)
+    assert bool((A[..., 0].imag.abs() > 0).all())
+    want = tss._advect_plain(A, c)
+    assert _rel(_advect_packed(A, n).numpy(), want.numpy()) < 1e-5
+    # bin 0's imaginary part changes neither
+    B = A.clone()
+    B[..., 0] = B[..., 0].real.to(torch.complex64)
+    assert _rel(_advect_packed(B, n).numpy(), want.numpy()) < 1e-5
+    assert _rel(tss._advect_plain(B, c).numpy(), want.numpy()) < 1e-6
+    # the other pairing computes the same function
+    assert _rel(_advect_packed(A, n, by_size=False).numpy(), want.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+def test_packing_pairs_fields_of_like_size(layout):
+    """Why the kernel packs u with v and ∂ω/∂x with ∂ω/∂y: in fp32 a complex
+    row's rounding follows its larger part, and at 256² the gradient exceeds
+    the velocity by up to ~85² at the top modes, so u + i ∂ω/∂x loses u's
+    digits. On K1's output of a random spectrum, paired by size the fp32
+    transforms stay within 2e-6 of the plain version's largest entry, the
+    other way they miss by more than 2e-5."""
+    n = 256
+    c = tss.constants(layout, tgrids.Grid((n, n), domain=DOMAIN), 1e-3, 0.1, DT, "cpu")
+    w = torch.randn(2, c["R"], c["m"], dtype=torch.complex64,
+                    generator=torch.Generator().manual_seed(9))
+    A = tss._inverse_first_plain(w, c)
+    want = tss._advect_plain(A, c)
+
+    def err(by_size):
+        got = _advect_packed(A, n, by_size, torch.complex64)
+        return float((got - want).abs().max() / want.abs().max())
+
+    assert err(True) < 2e-6 < 2e-5 < err(False)
+
+
+def _stockham(x, inverse):
+    """The card kernel's passes over rows x (rows, n), as its threads index
+    them: thread t holds points t + (n/16) k; butterfly j = t + (n/16) q of
+    pass p (radix R, NS = 16^p) takes points j + r n/R, twiddles input r by
+    table entry [r - 1][j % NS] (conjugated for the inverse), and a pass
+    before the last sends output r to (j / NS) NS R + j % NS + r NS."""
+    n = x.shape[-1]
+    g = n // 16
+    tw = tss._twiddles(n).astype(np.complex128)
+    radices = tss._fft_passes(n)
+    t, k = np.arange(g)[:, None], np.arange(16)[None, :]
+    v = x[..., t + g * k]
+    off = 0
+    for p, R in enumerate(radices):
+        bf, ns = 16 // R, 16 ** p
+        r = np.arange(R)
+        dft = np.exp((1 if inverse else -1) * 2j * np.pi * np.outer(r, r) / R)
+        new = np.empty_like(v)
+        for q in range(bf):
+            j = np.arange(g) + g * q
+            idx = q + bf * r
+            u = v[..., idx]
+            if ns > 1:
+                w = np.stack([np.ones(g)] + [tw[off + (i - 1) * ns + (j & (ns - 1))]
+                                             for i in range(1, R)], -1)
+                u = u * (w.conj() if inverse else w)
+            new[..., idx] = u @ dft
+        v = new
+        if ns > 1:
+            off += (R - 1) * ns
+        if p < len(radices) - 1:
+            buf = np.empty(x.shape, complex)
+            buf[..., (t // ns) * ns * 16 + t % ns + k * ns] = v
+            v = buf[..., t + g * k]
+    assert off == len(tw) or len(radices) == 1
+    out = np.empty(x.shape, complex)
+    out[..., t + g * k] = v
+    return out
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512, 1024, 2048])
+def test_fft_passes_and_twiddle_table(n):
+    """K2's radices (16 a pass, the last 2, 4, 8 or 16) and its host
+    twiddle table (float64 rounded to complex64) give the DFT of n points
+    both ways, unnormalised, through the kernel's Stockham indexing."""
+    assert np.prod(tss._fft_passes(n)) == n
+    assert tss._twiddles(n).dtype == np.complex64
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    for inverse, want in ((False, np.fft.fft(x)), (True, n * np.fft.ifft(x))):
+        got = _stockham(x, inverse)
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+
+
+def test_cpu_rollout_takes_any_n():
+    """The plain path steps any n, the sizes the card's K2 refuses included."""
+    n = 24
+    grid = tgrids.Grid((n, n), domain=DOMAIN)
+    assert not tss.advect_takes(n)
+    x = np.random.default_rng(3).standard_normal((2, n, n))
+    w0 = torch.from_numpy(np.fft.rfft2(x).astype(np.complex64))
+    kw = dict(grid=grid, fft_impl="dft_galerkin", device="cpu", viscosity=1e-3,
+              mxu_precision="highest")
+    fused, _ = teq.NavierStokes2DSpectral(fused=True, **kw).forward(w0, DT, 3)
+    plain, _ = teq.NavierStokes2DSpectral(**kw).forward(w0, DT, 3)
+    assert _rel(fused.numpy(), plain.numpy()) < 5e-6
 
 
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
 def test_kernel_operand_layouts(layout):
     """The kernels' copies of the constants: G and F transposed, the four
-    multipliers of a mode side by side, IL's rows re/im interleaved."""
+    multipliers of a mode side by side, K2's twiddle table (and no dense
+    last-axis matrix for it)."""
     c = tss.constants(layout, TG, 1e-3, 0.0, DT, "cpu")
     assert torch.equal(c["GT"], c["G"].T) and torch.equal(c["FT"], c["F"].T)
     assert torch.equal(c["cf4"], c["cf"].permute(1, 2, 0))
-    assert torch.equal(c["il"][0::2], c["il_re"]) and torch.equal(c["il"][1::2], c["il_im"])
-    assert all(c[k].is_contiguous() for k in ("GT", "FT", "cf4", "il"))
+    assert torch.equal(c["tw"], torch.from_numpy(tss._twiddles(N)))
+    assert "il" not in c
+    assert all(c[k].is_contiguous() for k in ("GT", "FT", "cf4", "tw"))

@@ -13,43 +13,48 @@
 //      multipliers (u, v, d/dx w, d/dy w are each i*c_f*w) fused into the
 //      first-axis inverse DFT, A_f = G @ (i c_f w): a batched complex
 //      (n x R)(R x m) product for the four fields.
-//   K2 spectral_advect: one block per (sample, TX physical rows): inverse
-//      last-axis DFT of the four fields, the advection product
-//      -(u dw/dx + v dw/dy), and the forward last-axis DFT, over chunks of
-//      block_cols physical columns. The physical fields never reach device
+//   K2 spectral_advect: TX physical rows a block: the inverse last-axis
+//      transforms of the four fields, the advection product
+//      -(u dw/dx + v dw/dy) and the forward last-axis transform, as radix
+//      FFTs in shared memory. The physical fields never reach device
 //      memory.
 //   K3 spectral_forward_first: the forward first-axis DFT (R x n)(n x m)
 //      with the dealias filter, the constant forcing, h = e + beta_k h and
 //      the per-mode Crank-Nicolson update in its epilogue, in place on the
 //      state.
 //
-// Arithmetic is fp32 FFMA throughout, for every precision mode, so all
-// three modes compute at least the accuracy that "highest" asks for.
+// Arithmetic is fp32 on the CUDA cores throughout (FFMA), for every
+// precision mode, so all three modes compute at least the accuracy that
+// "highest" asks for.
 //
-// Bound: per sample and step, 5 * (40 n R m + 20 n^2 m) flops; at 256^2
-// Galerkin (R=170, m=86) that is 1.31 GFLOP, 19.6 us per sample-step at
-// the H100 SXM's 67 TFLOP/s fp32 (NVIDIA data sheet): the kernels are bound
-// by operations, so each one is a register-tiled product whose operands are
-// staged in shared memory by cp.async one chunk ahead of the FMAs:
+// K1 and K3 are dense products: per sample and step 5 * 32 n R m flops
+// (K1) and 5 * 8 n R m (K3), at 256^2 Galerkin (R=170, m=86) 0.60 and 0.15
+// GFLOP, bound by operations at the H100 SXM's 67 TFLOP/s fp32 (NVIDIA
+// data sheet); each is a register-tiled product whose operands are staged
+// in shared memory by cp.async one chunk ahead of the FMAs:
 //
 //   K1: 64 x 32 (x, c) tiles of all four fields, 16-deep chunks of r; a
 //       thread holds 8 rows x 4 fields, and forms i c_f w for its column
 //       as the operand loads (c_f comes as one float4 of the four fields);
 //   K3: 64 x 32 (r, c) tiles, 32-deep chunks of x, 4 x 2 a thread, the
-//       Crank-Nicolson update in the epilogue, in place on h and w;
-//   K2: TX = 32 rows (16 or 8 where the spectrum is wider) of the four
-//       first-axis fields stay in shared memory for the whole block
-//       ([k][x][field], k = 2c + re/im), and one stream of tiles runs
-//       through a 3-slot cp.async ring of 4 KB: for each chunk of
-//       block_cols columns, 16-deep tiles of the interleaved inverse
-//       matrix IL (2m x n) for each 64 columns, then FR-row tiles of the
-//       forward matrix FL (n x 2m). A thread holds 4 fields x 2 rows x 4
-//       columns of the physical fields, writes their advection term to
-//       shared memory at the end of the depth, and keeps its part of T
-//       (2 rows x NP passes of 4 floats) in registers across all chunks.
-//       The pass count is a template parameter, so the forward part has
-//       no branch between its loads; at 256^2 Galerkin a block takes
-//       112 KB and two share an SM.
+//       Crank-Nicolson update in the epilogue, in place on h and w.
+//
+// K2 does by the FFT rule what a dense product would do in n^2 m: u and v
+// of a physical row go into one complex row z1 = u + i v, dw/dx and dw/dy
+// into z2, so that a row takes two complex inverse transforms and the
+// product is -(Re z1 Re z2 + Im z1 Im z2); rows x and x + 1 share one
+// forward transform of adv_x + i adv_{x+1}. That is 2.5 complex n-point
+// FFTs a row, 5 n log2 n flops each: at 256^2, b=32, 0.21 GFLOP a launch
+// against 28 MB of A read and T written once, so K2 is bound by bytes
+// (8.4 us at 3.35 TB/s). n/16 threads hold a row, 16 points each; a block
+// loads its rows of A straight into the Hermitian-extended rows in shared
+// memory (zeros elsewhere), runs Stockham passes of radix 16 (the last of
+// radix 2, 4, 8 or 16) in registers with one exchange through shared memory
+// between passes (one float2 of padding every 16, so no bank conflicts),
+// takes the product in registers, runs the forward passes and writes the m
+// kept bins of T. The twiddles come from a host table (float64 rounded to
+// float32); n is a power of two from 16 to 2048, and the host picks the
+// rows a block from the shape (spectral_step.py::advect_layout).
 //
 // Plain C interface: every pointer and the stream are void*, and each
 // entry point returns cudaGetLastError() right after its launch.
@@ -61,7 +66,7 @@ namespace {
 constexpr int K13_THREADS = 256;
 constexpr int K1_BM = 64, K1_BN = 32, K1_KC = 16, K1_TM = 8;  // 8 rows x 1 column a thread
 constexpr int K3_BM = 64, K3_BN = 32, K3_KC = 32, K3_TM = 4, K3_TN = 2;
-constexpr int K2_THREADS = 256, K2_JC = 64, K2_KC = 16, K2_STAGES = 3, K2_SLOT = 1024;
+constexpr int K2_THREADS = 256;  // the most threads a K2 block
 
 __device__ __forceinline__ float2 cmac(float2 acc, float2 a, float2 b) {
   acc.x = fmaf(a.x, b.x, acc.x);
@@ -71,12 +76,7 @@ __device__ __forceinline__ float2 cmac(float2 acc, float2 a, float2 b) {
   return acc;
 }
 
-// cp.async of 4, 8 or 16 bytes; zeros where !ok (nothing is read then)
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(ok ? 4 : 0));
-}
+// cp.async of 8 or 16 bytes; zeros where !ok (nothing is read then)
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
@@ -174,198 +174,259 @@ __global__ void __launch_bounds__(K13_THREADS) inverse_first_kernel(
   }
 }
 
-// K2's place in its stream of tiles, chunk by chunk (j0): for each 64
-// columns (sub) the nk IL tiles of the depth (kt), then the nf FL tiles
-// (ft >= 0).
-struct Cursor {
-  int j0, sub, kt, ft;
-  __device__ __forceinline__ void next(int nk, int nsub, int nf, int jc) {
-    if (ft < 0) {
-      if (++kt == nk) {
-        kt = 0;
-        if (++sub == nsub) sub = 0, ft = 0;
-      }
-    } else if (++ft == nf) {
-      ft = -1, j0 += jc;
+// K2's radix passes. rot16 turns a by e sixteenths of a turn, clockwise for
+// the forward transform and counterclockwise for the inverse (e in 0..7);
+// e is known once the loops are unrolled, so its branches fold.
+constexpr float K2_C1 = 0.923879532511286756f;  // cos(pi/8)
+constexpr float K2_S1 = 0.382683432365089772f;  // sin(pi/8)
+constexpr float K2_H = 0.707106781186547524f;   // cos(pi/4)
+
+__device__ __forceinline__ float2 rot16(float2 a, int e, bool inv) {
+  if (e == 0) return a;
+  if (e == 4) return inv ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+  const float c = e == 1 ? K2_C1 : e == 2 ? K2_H : e == 3 ? K2_S1 : e == 5 ? -K2_S1
+                : e == 6 ? -K2_H : -K2_C1;
+  const float s0 = e == 1 ? K2_S1 : e == 2 ? K2_H : e == 3 ? K2_C1 : e == 5 ? K2_C1
+                 : e == 6 ? K2_H : K2_S1;
+  const float s = inv ? s0 : -s0;
+  return make_float2(fmaf(a.x, c, -a.y * s), fmaf(a.x, s, a.y * c));
+}
+
+__host__ __device__ constexpr int bitrev(int k, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((k >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+// the radix-2 stages of an R-point DFT in registers, decimation in frequency,
+// from butterflies HALF apart down to neighbours (a stage a template
+// instance, so every index is a constant and u stays in registers)
+template <int R, bool INV, int HALF>
+__device__ __forceinline__ void dif_stages(float2 (&u)[R]) {
+#pragma unroll
+  for (int b0 = 0; b0 < R; b0 += 2 * HALF)
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const float2 a = u[b0 + i], b = u[b0 + i + HALF];
+      u[b0 + i] = make_float2(a.x + b.x, a.y + b.y);
+      u[b0 + i + HALF] = rot16(make_float2(a.x - b.x, a.y - b.y), i * (8 / HALF), INV);
     }
-  }
+  if constexpr (HALF > 1) dif_stages<R, INV, HALF / 2>(u);
+}
+
+// an R-point DFT (R = 2, 4, 8 or 16) of u in registers, its bit-reversed
+// order undone by renaming registers
+template <int R, bool INV>
+__device__ __forceinline__ void dft(float2 (&u)[R]) {
+  dif_stages<R, INV, R / 2>(u);
+  constexpr int BITS = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  float2 o[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) o[k] = u[bitrev(k, BITS)];
+#pragma unroll
+  for (int k = 0; k < R; ++k) u[k] = o[k];
+}
+
+// An n-point transform, n = 2^LOG2N: G threads hold a row, 16 points each, and
+// it takes PASSES passes, of radix 16 but the last (LAST: 2, 4, 8 or 16). A row
+// in shared memory takes NP float2, one of padding after every 16; a physical
+// row's two rows take RS, which for rows of fewer than 256 points is G modulo
+// 16, so that the rows sharing a half-warp fall on distinct banks.
+template <int LOG2N>
+struct Fft {
+  static constexpr int N = 1 << LOG2N, G = N / 16;
+  static constexpr int PASSES = (LOG2N + 3) / 4;
+  static constexpr int LAST = 1 << (LOG2N - 4 * (PASSES - 1));
+  static constexpr int NP = N + N / 16;
+  static constexpr int RS = G >= 16 ? 2 * NP : 2 * NP + ((G - 2 * NP) % 16 + 16) % 16;
 };
 
-// K2: T[s, x, c] = sum_j adv[x, j] * FL[j, c], with adv = -(gx*vx + gy*vy)
-// and field_f[x, j] = sum_k A_f[x, k] IL[k, j] (k = 2c + re/im, IL's rows
-// il_re and il_im interleaved). A thread holds NP passes of 4 floats of
-// T's row, each pass 4 CG floats wide, so NP covers 2m.
-template <int TX, int NP>
-struct Advect {
-  static constexpr int RG = TX >= 16 ? 16 : TX;  // row groups, RT rows each
-  static constexpr int RT = TX / RG, CG = K2_THREADS / RG, CT = K2_JC / CG;
-  static constexpr int W2 = NP * 4 * CG;  // columns of an FL tile (2m and padding)
-  // rows of an FL tile: as many as fill a ring slot, at most 16
-  static constexpr int FR = W2 >= K2_SLOT ? 1 : (K2_SLOT / W2 >= 16 ? 16 : K2_SLOT / W2 >= 8 ? 8 :
-                            K2_SLOT / W2 >= 4 ? 4 : K2_SLOT / W2 >= 2 ? 2 : 1);
-  static constexpr int SLOT = FR * W2 > K2_SLOT ? FR * W2 : K2_SLOT;
-  static constexpr int AS = 4 * TX + 4;  // row stride of the field rows: [k][x][f]
-  static constexpr int VS = TX + 1;      // row stride of the advection term: [j][x]
-};
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
-template <int TX, int NP>
-__global__ void __launch_bounds__(K2_THREADS, 2) advect_kernel(
-    const float* __restrict__ A, const float* __restrict__ IL,
-    const float* __restrict__ FL, float2* __restrict__ T, int n, int m, int jc) {
-  using K = Advect<TX, NP>;
-  constexpr int RT = K::RT, CG = K::CG, CT = K::CT, W2 = K::W2, FR = K::FR;
-  constexpr int AS = K::AS, VS = K::VS;
-  extern __shared__ float4 smem4[];
-  const int m2 = 2 * m, k1p = (m2 + K2_KC - 1) / K2_KC * K2_KC;
-  float* As = reinterpret_cast<float*>(smem4);
-  float* ring = As + k1p * AS;
-  float* adv = ring + K2_STAGES * K::SLOT;  // (jc + FR) x VS, the last FR rows zero
-  const int tid = threadIdx.x, cg = tid % CG, rg = tid / CG;
-  const int s = blockIdx.y, x0 = blockIdx.x * TX;
-  const int nk = k1p / K2_KC;  // IL tiles for each 64 columns
-  const int nsub = (jc + K2_JC - 1) / K2_JC, nf = (jc + FR - 1) / FR;
-  for (int i = tid; i < FR * VS; i += K2_THREADS) adv[jc * VS + i] = 0.f;
+// where the twiddles of pass p >= 1 start in the table (spectral_step.py
+// _twiddles): (R - 1) x NS entries a pass, NS = 16^p
+__host__ __device__ constexpr int tw_offset(int p) {
+  int o = 0, ns = 16;
+  for (int i = 1; i < p; ++i, ns *= 16) o += 15 * ns;
+  return o;
+}
 
-  // this block's rows of the four fields, zero past n and past 2m: thread
-  // tid copies floats tid, tid + 256, ... of the (4 TX) x k1p rows
-  {
-    int row = tid / k1p, k = tid - row * k1p;
-    for (; row < 4 * TX;) {
-      const int f = row / TX, x = row - f * TX;
-      const bool ok = x0 + x < n && k < m2;
-      cp_async4(As + k * AS + 4 * x + f,
-                ok ? A + ((((size_t)s * 4 + f) * n + x0 + x) * m2 + k) : A, ok);
-      for (k += K2_THREADS; k >= k1p; k -= k1p) ++row;
-    }
-  }
-  // the next tile into ring slot `slot_i` (the copies above go with tile 0)
-  Cursor in{0, 0, 0, -1};
-  auto fetch = [&](int slot_i) {
-    if (in.j0 < n) {
-      float* dst = ring + slot_i * K::SLOT;
-      if (in.ft < 0) {  // IL rows k0.., columns jb..jb+63 of the chunk
-        const int k0 = in.kt * K2_KC + (tid >> 6), j = in.j0 + in.sub * K2_JC + (tid & 63);
-        const bool in_chunk = j < in.j0 + jc;
-        static_assert(K2_KC * K2_JC == K2_SLOT, "an IL tile fills a slot");
+// Pass P of NV transforms, and the passes after it (Stockham, decimation in
+// time). v[i][k] holds point t + G k of transform i as the pass reads it.
+// Butterfly j = t + G q (q < 16 / R) takes points j + r N / R, which are
+// v[i][q + (16 / R) r], twiddles them by the table (conjugated for the
+// inverse) and puts its outputs back in the same registers. A pass before the
+// last sends output r of butterfly j to point (j / NS) NS R + j % NS + r NS
+// of buf[i] and reads the next pass's points from there; after the last,
+// v[i][k] holds output point t + G k. Threads with !act compute nothing but
+// meet every barrier.
+template <int LOG2N, bool INV, int NV, int P = 0>
+__device__ __forceinline__ void fft_passes(float2 (&v)[NV][16], float2* const (&buf)[NV],
+                                           int t, const float2* __restrict__ tw, bool act) {
+  using F = Fft<LOG2N>;
+  constexpr int R = P < F::PASSES - 1 ? 16 : F::LAST, BF = 16 / R, NS = 1 << (4 * P);
+  if (act) {
 #pragma unroll
-        for (int q = 0; q < K2_KC * K2_JC / K2_THREADS; ++q) {
-          const int k = k0 + q * (K2_THREADS / K2_JC);
-          const bool ok = in_chunk && k < m2;
-          cp_async4(dst + tid + q * K2_THREADS, ok ? IL + (size_t)k * n + j : IL, ok);
-        }
-      } else {  // FL rows j0 + ft FR.., all 2m columns
-        const int row0 = in.ft * FR;
+    for (int q = 0; q < BF; ++q) {
+      float2 w[R];
+      if constexpr (NS > 1) {
+        const float2* tp = tw + tw_offset(P) + ((t + F::G * q) & (NS - 1));
 #pragma unroll
-        for (int q = 0; q < (FR * W2 + K2_THREADS - 1) / K2_THREADS; ++q) {
-          const int i = tid + q * K2_THREADS, rr = i / W2, col = i - rr * W2;
-          if ((FR * W2) % K2_THREADS != 0 && i >= FR * W2) break;
-          const bool ok = col < m2 && row0 + rr < jc;
-          cp_async4(dst + i, ok ? FL + (size_t)(in.j0 + row0 + rr) * m2 + col : FL, ok);
-        }
+        for (int r = 1; r < R; ++r) w[r] = __ldg(tp + (r - 1) * NS);
       }
-      in.next(nk, nsub, nf, jc);
-    }
-    cp_async_commit();
-  };
-
-  float acc1[4][RT][CT];
-  float acc2[NP][RT][4];
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+      for (int i = 0; i < NV; ++i) {
+        float2 u[R];
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+        for (int r = 0; r < R; ++r) u[r] = v[i][q + BF * r];
+        if constexpr (NS > 1) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[p][r][e] = 0.f;
-
-#pragma unroll
-  for (int t = 0; t < K2_STAGES - 1; ++t) fetch(t);
-  Cursor at{0, 0, 0, -1};
-  for (int t = 0; at.j0 < n; ++t) {
-    cp_async_wait<K2_STAGES - 2>();
-    __syncthreads();  // tile t is in; every thread is done with tile t - 1
-    fetch((t + K2_STAGES - 1) % K2_STAGES);
-    const float* cur = ring + (t % K2_STAGES) * K::SLOT;
-    if (at.ft < 0) {
-      if (at.kt == 0) {
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-#pragma unroll
-          for (int r = 0; r < RT; ++r)
-#pragma unroll
-            for (int c = 0; c < CT; ++c) acc1[f][r][c] = 0.f;
-      }
-      const float* a = As + at.kt * K2_KC * AS + 4 * RT * rg;
-      const float* b = cur + CT * cg;
-#pragma unroll
-      for (int kk = 0; kk < K2_KC; ++kk) {
-        float av[RT][4], bv[CT];
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          const float4 t4 = *reinterpret_cast<const float4*>(a + kk * AS + 4 * r);
-          av[r][0] = t4.x, av[r][1] = t4.y, av[r][2] = t4.z, av[r][3] = t4.w;
-        }
-        if constexpr (CT == 4) {
-          const float4 t4 = *reinterpret_cast<const float4*>(b + kk * K2_JC);
-          bv[0] = t4.x, bv[1] = t4.y, bv[2] = t4.z, bv[3] = t4.w;
-        } else {
-          static_assert(CT == 2, "a thread takes 2 or 4 columns");
-          const float2 t2 = *reinterpret_cast<const float2*>(b + kk * K2_JC);
-          bv[0] = t2.x, bv[1] = t2.y;
-        }
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-#pragma unroll
-          for (int r = 0; r < RT; ++r)
-#pragma unroll
-            for (int c = 0; c < CT; ++c) acc1[f][r][c] = fmaf(av[r][f], bv[c], acc1[f][r][c]);
-      }
-      if (at.kt == nk - 1) {  // the depth is done: this sub-tile's advection term
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int j = at.sub * K2_JC + CT * cg + c;
-          if (j >= jc) continue;
-#pragma unroll
-          for (int r = 0; r < RT; ++r)
-            adv[j * VS + RT * rg + r] =
-                -(acc1[2][r][c] * acc1[0][r][c] + acc1[3][r][c] * acc1[1][r][c]);
-        }
-      }
-    } else {  // rows past jc read the zero rows of adv and of the tile
-      const float* ap = adv + at.ft * FR * VS + RT * rg;
-#pragma unroll
-      for (int rr = 0; rr < FR; ++rr) {
-        float av[RT];
-#pragma unroll
-        for (int r = 0; r < RT; ++r) av[r] = ap[rr * VS + r];
-        const float* b = cur + rr * W2 + 4 * cg;
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const float4 bv = *reinterpret_cast<const float4*>(b + p * 4 * CG);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            acc2[p][r][0] = fmaf(av[r], bv.x, acc2[p][r][0]);
-            acc2[p][r][1] = fmaf(av[r], bv.y, acc2[p][r][1]);
-            acc2[p][r][2] = fmaf(av[r], bv.z, acc2[p][r][2]);
-            acc2[p][r][3] = fmaf(av[r], bv.w, acc2[p][r][3]);
+          for (int r = 1; r < R; ++r) {
+            const float2 a = u[r];
+            const float wx = w[r].x, wy = INV ? -w[r].y : w[r].y;
+            u[r] = make_float2(fmaf(a.x, wx, -a.y * wy), fmaf(a.x, wy, a.y * wx));
           }
         }
+        dft<R, INV>(u);
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[i][q + BF * r] = u[r];
       }
     }
-    at.next(nk, nsub, nf, jc);
   }
-  cp_async_wait<0>();
+  if constexpr (P < F::PASSES - 1) {
+    const int base = (t / NS) * NS * 16 + t % NS;
+    __syncthreads();  // every thread has read its points of this pass
+    if (act) {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
+      for (int i = 0; i < NV; ++i)
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const int x = x0 + RT * rg + r;
-      if (x >= n) continue;
+        for (int r = 0; r < 16; ++r) buf[i][pad(base + r * NS)] = v[i][r];
+    }
+    __syncthreads();
+    if (act) {
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int c = (p * 4 * CG + 4 * cg + e) >> 1;
-        if (c < m)
-          T[((size_t)s * n + x) * m + c] = make_float2(acc2[p][r][e], acc2[p][r][e + 1]);
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[i][k] = buf[i][pad(t + F::G * k)];
+    }
+    fft_passes<LOG2N, INV, NV, P + 1>(v, buf, t, tw, act);
+  }
+}
+
+// K2: T[s, x, c] = sum_j adv[s, x, j] e^{-2 pi i c j / n} for c < m, where
+// adv = -(u gx + v gy) and each field is the inverse real transform of its
+// row A_f[s, x, :m] (1/n normalised, bin 0's imaginary part ignored, bins m
+// to n/2 zero). Rows of the flattened (sample, x) index, `rows` = b n of
+// them, blockDim.x / G a block (an even number, so a pair x, x + 1 never
+// straddles a sample); row g of a block works in the RS float2 at g RS.
+// A complex row pairs fields of like size, u with v and gx with gy: gx is
+// up to ~(n/3)^2 times u at the highest modes, and a row's rounding follows
+// its larger part, so z = u + i gx would lose that factor of u's precision
+// (1.3e-4 of T at 256^2, 2e-3 at 1024^2, against 6e-7 paired by size).
+template <int LOG2N>
+__global__ void __launch_bounds__(K2_THREADS, 2) advect_fft_kernel(
+    const float2* __restrict__ A, const float2* __restrict__ tw, float2* __restrict__ T,
+    int rows, int m) {
+  using F = Fft<LOG2N>;
+  constexpr int N = F::N, G = F::G;
+  extern __shared__ float4 smem4[];
+  const int t = threadIdx.x % G, g = threadIdx.x / G;
+  const int row = blockIdx.x * (blockDim.x / G) + g;
+  const bool live = row < rows, even = (g & 1) == 0;
+  const int s = row >> LOG2N, x = row & (N - 1);
+  float2* const z1 = reinterpret_cast<float2*>(smem4) + g * F::RS;  // u + i v
+  float2* const z2 = z1 + F::NP;                                     // gx + i gy
+
+  // The spectra of z1 and z2, Hermitian-extended from the m kept bins of
+  // (u, v) and (gx, gy): bin c of fields a, b gives Z[c] = a_c + i b_c and
+  // Z[n - c] = conj(a_c) + i conj(b_c), bin 0 Re a_0 + i Re b_0; bins m to
+  // n - m are zero.
+  {
+    const size_t fs = (size_t)N * m;  // one field of one sample
+    const float2* a = A + ((size_t)s * 4 * N + x) * m;
+    float2 f[4][8];  // m <= n / 2 = 8 G
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = t + G * q;
+      const bool ok = live && c < m;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i][q] = ok ? __ldg(a + i * fs + c) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = t + G * q;
+      if (c < m) {
+        const float2 u = f[0][q], v = f[1][q], gx = f[2][q], gy = f[3][q];
+        if (c == 0) {
+          z1[0] = make_float2(u.x, v.x);
+          z2[0] = make_float2(gx.x, gy.x);
+        } else {
+          z1[pad(c)] = make_float2(u.x - v.y, u.y + v.x);
+          z1[pad(N - c)] = make_float2(u.x + v.y, v.x - u.y);
+          z2[pad(c)] = make_float2(gx.x - gy.y, gx.y + gy.x);
+          z2[pad(N - c)] = make_float2(gx.x + gy.y, gy.x - gx.y);
+        }
       }
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int c = t + G * q;
+      if (c >= m && c <= N - m) z1[pad(c)] = z2[pad(c)] = make_float2(0.f, 0.f);
+    }
+  }
+  float2* const zs[2] = {z1, z2};
+  float2 v[2][16];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[i][k] = zs[i][pad(t + G * k)];
+  fft_passes<LOG2N, true, 2>(v, zs, t, tw, true);
+
+  // the advection term at points t + G k, each inverse's 1/n applied here
+  constexpr float scale = 1.f / ((float)N * (float)N);
+  float adv[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    adv[k] = -fmaf(v[1][k].x, v[0][k].x, v[1][k].y * v[0][k].y) * scale;
+
+  // rows x (g even) and x + 1 (g + 1) in one forward transform of
+  // y = adv_x + i adv_{x+1}: row g + 1 hands its term over in its own z1
+  __syncthreads();
+  if (!even) {
+    float* const mine = reinterpret_cast<float*>(z1);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) mine[pad(t + G * k)] = adv[k];
+  }
+  __syncthreads();
+  float2 y[1][16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) y[0][k] = make_float2(adv[k], 0.f);
+  if (even) {
+    const float* other = reinterpret_cast<const float*>(z1 + F::RS);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) y[0][k].y = other[pad(t + G * k)];
+  }
+  float2* const ys[1] = {z1};
+  fft_passes<LOG2N, false, 1>(y, ys, t, tw, even);
+  __syncthreads();
+  if (even) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) z1[pad(t + G * k)] = y[0][k];
+  }
+  __syncthreads();
+
+  // T[x, c] = (Y[c] + conj Y[n - c]) / 2, T[x + 1, c] = (Y[c] - conj Y[n - c]) / 2i
+  if (!live) return;
+  const float2* Y = even ? z1 : z1 - F::RS;
+  float2* const out = T + (size_t)row * m;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int c = t + G * q;
+    if (c < m) {
+      const float2 a = Y[pad(c)], b = Y[pad((N - c) & (N - 1))];
+      out[c] = even ? make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y))
+                    : make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
     }
   }
 }
@@ -464,34 +525,20 @@ int set_smem(const void* kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-template <int TX, int NP>
-int launch_advect(const void* A, const void* IL, const void* FL, void* T, int b,
-                  int n, int m, int jc, int smem, cudaStream_t stream) {
-  // the host sizes the layout (advect_layout); refuse one smaller than the
-  // instance reads
-  using K = Advect<TX, NP>;
-  const long long k1p = (2LL * m + K2_KC - 1) / K2_KC * K2_KC;
-  if (NP * 4 * K::CG < 2 * m ||
-      smem < 4 * (k1p * K::AS + K2_STAGES * K::SLOT + (jc + K::FR) * (long long)K::VS))
+template <int LOG2N>
+int launch_advect(const void* A, const void* tw, void* T, int rows, int m, int threads,
+                  int smem, cudaStream_t stream) {
+  // the host sizes the layout (advect_layout); refuse one the kernel cannot take
+  using F = Fft<LOG2N>;
+  const int tx = threads / F::G;
+  if (threads > K2_THREADS || threads % F::G || tx % 2 || 2 * m > F::N ||
+      smem < tx * F::RS * (int)sizeof(float2))
     return (int)cudaErrorInvalidValue;
-  const int e = set_smem((const void*)advect_kernel<TX, NP>, smem);
+  const int e = set_smem((const void*)advect_fft_kernel<LOG2N>, smem);
   if (e != 0) return e;
-  const dim3 grid((n + TX - 1) / TX, b);
-  advect_kernel<TX, NP><<<grid, K2_THREADS, smem, stream>>>(
-      (const float*)A, (const float*)IL, (const float*)FL, (float2*)T, n, m, jc);
+  advect_fft_kernel<LOG2N><<<(rows + tx - 1) / tx, threads, smem, stream>>>(
+      (const float2*)A, (const float2*)tw, (float2*)T, rows, m);
   return (int)cudaGetLastError();
-}
-
-// the instance <TX, np> for np <= NP
-template <int TX, int NP>
-int dispatch_advect(int np, const void* A, const void* IL, const void* FL, void* T,
-                    int b, int n, int m, int jc, int smem, cudaStream_t stream) {
-  if constexpr (NP == 0) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (np == NP) return launch_advect<TX, NP>(A, IL, FL, T, b, n, m, jc, smem, stream);
-    return dispatch_advect<TX, NP - 1>(np, A, IL, FL, T, b, n, m, jc, smem, stream);
-  }
 }
 
 }  // namespace
@@ -511,16 +558,21 @@ int spectral_inverse_first(const void* w, const void* GT, const void* cf4,
   return (int)cudaGetLastError();
 }
 
-// The K2 instance and its layout come from the host
-// (spectral_step.py::advect_layout): tx rows a block (32, 16 or 8), np
-// passes (up to 4, 8 or 12), smem bytes.
-int spectral_advect(const void* A, const void* IL, const void* FL, void* T, int b,
-                    int n, int m, int jc, int tx, int np, int smem, void* stream) {
+// K2 at n = 2^log2n, 16 <= n <= 2048; the threads a block and the shared
+// memory come from the host (spectral_step.py::advect_layout).
+int spectral_advect(const void* A, const void* tw, void* T, int b, int log2n, int m,
+                    int threads, int smem, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (tx) {
-    case 32: return dispatch_advect<32, 4>(np, A, IL, FL, T, b, n, m, jc, smem, s);
-    case 16: return dispatch_advect<16, 8>(np, A, IL, FL, T, b, n, m, jc, smem, s);
-    case 8: return dispatch_advect<8, 12>(np, A, IL, FL, T, b, n, m, jc, smem, s);
+  const int rows = b << log2n;
+  switch (log2n) {
+    case 4: return launch_advect<4>(A, tw, T, rows, m, threads, smem, s);
+    case 5: return launch_advect<5>(A, tw, T, rows, m, threads, smem, s);
+    case 6: return launch_advect<6>(A, tw, T, rows, m, threads, smem, s);
+    case 7: return launch_advect<7>(A, tw, T, rows, m, threads, smem, s);
+    case 8: return launch_advect<8>(A, tw, T, rows, m, threads, smem, s);
+    case 9: return launch_advect<9>(A, tw, T, rows, m, threads, smem, s);
+    case 10: return launch_advect<10>(A, tw, T, rows, m, threads, smem, s);
+    case 11: return launch_advect<11>(A, tw, T, rows, m, threads, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@ of five stages; each stage is three hand-written kernels in
 
 - ``inverse_first``: multipliers fused into the first-axis inverse DFT;
 - ``advect``: inverse last axis, advection product, forward last axis, per
-  tile of physical rows, over chunks of ``block_cols`` physical columns;
+  tile of whole physical rows, as radix FFTs in shared memory;
 - ``forward_first``: forward first axis with the Crank-Nicolson update.
 
 Every kernel has a wrapper that dispatches on the device of the tensor it
@@ -20,13 +20,14 @@ kernel or raises. Each wrapper counts its launches in ``LAUNCHES``.
 ``_fused_rollout_plain`` is the whole rollout in plain PyTorch.
 
 On the card every precision mode computes in fp32 FFMA, at least the
-accuracy ``"highest"`` asks for: each kernel is a register-tiled product on
-the CUDA cores, its operands staged in shared memory by cp.async (the
-``.cu`` header gives the tiles). ``constants`` lays the operands out for
-them (``GT``, ``FT``, ``cf4``, ``il``) beside the plain versions' matrices;
-``advect_layout`` picks K2's rows a block and shared-memory layout from the
-shape. The rollout is forward-only: taking a gradient through it raises, as
-in the JAX package.
+accuracy ``"highest"`` asks for: K1 and K3 are register-tiled products on
+the CUDA cores, their operands staged in shared memory by cp.async, and K2
+runs Stockham passes in registers and shared memory (the ``.cu`` header
+gives the design). ``constants`` lays the operands out for them (``GT``,
+``FT``, ``cf4`` and K2's twiddle table ``tw``) beside the plain versions'
+matrices; ``advect_layout`` picks K2's rows a block from the shape and
+refuses an n the kernel does not take. The rollout is forward-only: taking
+a gradient through it raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,14 +55,8 @@ _GAMMAS = (0.1496590219993, 0.3792103129999, 0.8229550293869,
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"inverse_first": 0, "advect": 0, "forward_first": 0}
 
-# K2's template instances (csrc/spectral_step.cu advect_kernel): physical
-# rows a block and the most passes of 4 x column-groups floats over the 2m
-# columns of T that a thread holds; its 256 threads, the depth of an IL
-# tile, the slots of its cp.async ring and their floats; the shared memory
-# a block may use on an H100 (232,448 bytes).
-_K2_INSTANCES = ((32, 4), (16, 8), (8, 12))
-_K2_THREADS, _K2_KC, _K2_STAGES, _K2_SLOT = 256, 16, 3, 1024
-_MAX_SMEM = 232448
+# the grid sizes K2 (csrc/spectral_step.cu advect_fft_kernel) takes
+_K2_MIN_N, _K2_MAX_N = 16, 2048
 
 
 def reset_launch_counts() -> None:
@@ -141,12 +136,12 @@ def _constants(layout: str, n: int, step, viscosity, drag, dt, device: str):
     cf = np.stack([-tky * ilap, tkx * ilap, tkx, tky])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     # the kernels' operand layouts: G and F transposed, the four fields'
-    # multipliers of a mode side by side, IL's rows il_re and il_im interleaved
-    il = np.stack([M["inv_last_re"], M["inv_last_im"]], axis=1).reshape(2 * m, n)
+    # multipliers of a mode side by side, K2's twiddles (where it takes n)
     return {
         "n": n, "R": G.shape[1], "m": m,
         "G": t(G), "F": t(F), "cf": t(cf),
-        "GT": t(G.T), "FT": t(F.T), "cf4": t(np.moveaxis(cf, 0, -1)), "il": t(il),
+        "GT": t(G.T), "FT": t(F.T), "cf4": t(np.moveaxis(cf, 0, -1)),
+        "tw": t(_twiddles(n)) if advect_takes(n) else None,
         "il_re": t(M["inv_last_re"]), "il_im": t(M["inv_last_im"]),
         "fl": t(_cplx(M["fwd_last_re"], M["fwd_last_im"])),
         "filt": t(hc["filt"]), "lin": t(hc["lin"]), "dens": t(hc["dens"]),
@@ -187,7 +182,7 @@ def _lib():
     lib = _build.load("spectral_step")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spectral_inverse_first.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.spectral_advect.argtypes = [P] * 4 + [I] * 7 + [P]
+    lib.spectral_advect.argtypes = [P] * 3 + [I] * 5 + [P]
     lib.spectral_forward_first.argtypes = (
         [P] * 8 + [I, I, I, I, I, F, F, F, P])
     for fn in (lib.spectral_inverse_first, lib.spectral_advect,
@@ -241,15 +236,13 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
 def _launch_advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
     b, n, m = A.shape[0], c["n"], c["m"]
     _check(A, (b, 4, n, m), c["G"].device, "first-axis output")
-    layout = advect_layout(n, m, block_cols)
-    if layout is None:
-        raise ValueError(_smem_message(n, m, block_cols))
+    _, threads, nbytes = advect_layout(n)
     T = _out(out, (b, n, m), A)
     lib = _lib()  # built at first use, before the device is made current
     with torch.cuda.device(A.device):
         _ok(lib.spectral_advect(
-            A.data_ptr(), c["il"].data_ptr(), c["fl"].data_ptr(), T.data_ptr(), b, n,
-            m, block_cols, *layout, _stream(A.device)), "spectral_advect")
+            A.data_ptr(), c["tw"].data_ptr(), T.data_ptr(), b, n.bit_length() - 1, m,
+            threads, nbytes, _stream(A.device)), "spectral_advect")
     LAUNCHES["advect"] += 1
     return T
 
@@ -287,7 +280,8 @@ def inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
 
 
 def advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
-    """Kernel K2 on CUDA tensors, its plain version on CPU tensors."""
+    """Kernel K2 on CUDA tensors, its plain version on CPU tensors; both
+    take whole rows, whatever ``block_cols`` (the JAX signature's)."""
     return _dispatch(A, _advect_plain, _launch_advect)(A, c, block_cols, out)
 
 
@@ -331,51 +325,70 @@ class _ForwardOnly(torch.autograd.Function):
         )
 
 
+def advect_takes(n: int) -> bool:
+    """Whether K2 takes an n² grid: n a power of two from 16 to 2048."""
+    return _K2_MIN_N <= n <= _K2_MAX_N and n & (n - 1) == 0
+
+
+def _fft_passes(n: int):
+    """K2's radices for n points: 16 each pass, the last 2, 4, 8 or 16."""
+    log2n = n.bit_length() - 1
+    passes = (log2n + 3) // 4
+    return (16,) * (passes - 1) + (1 << (log2n - 4 * (passes - 1)),)
+
+
+def _twiddles(n: int) -> np.ndarray:
+    """K2's twiddle table: for each pass p >= 1 (radix R, NS = 16^p points
+    already combined), exp(-2πi k r / (NS R)) at [r - 1][k], r < R, k < NS,
+    in float64 rounded to complex64; one unused entry where n = 16."""
+    parts = []
+    for p, R in enumerate(_fft_passes(n)):
+        if p:
+            ns = 16 ** p
+            r, k = np.arange(1, R)[:, None], np.arange(ns)[None, :]
+            parts.append(np.exp(-2j * np.pi * r * k / (ns * R)).ravel())
+    return (np.concatenate(parts) if parts else np.ones(1)).astype(np.complex64)
+
+
+def _k2_row_floats(n: int) -> int:
+    """float2 a physical row takes in K2's shared memory (its ``Fft::RS``):
+    two rows of n points, one float2 of padding every 16, and below 256 points
+    n/16 modulo 16, so that the rows sharing a half-warp meet no bank twice."""
+    g, np_ = n // 16, n + n // 16
+    return 2 * np_ if g >= 16 else 2 * np_ + (g - 2 * np_) % 16
+
+
 @functools.lru_cache(maxsize=None)
-def advect_layout(n: int, m: int, jc: int):
-    """K2's instance and shared-memory size for this shape and column chunk,
-    as ``(rows a block, passes, bytes)``, or ``None`` where no instance fits
-    in one block's shared memory.
+def advect_layout(n: int):
+    """K2's blocks for an n² grid, as ``(rows a block, threads, bytes of
+    shared memory)``; raises ``ValueError`` for an n it does not take
+    (``advect_takes``).
 
-    A block keeps its rows of the four fields (``4 x rows x 2m`` floats, 2m
-    padded to 16, row stride ``4 rows + 4``), a ring of 3 slots and the
-    advection term of one chunk and ``fr`` zero rows (``(jc + fr) x (rows +
-    1)``). A slot holds a 16 x 64 tile of IL or ``fr`` rows of FL padded to
-    the passes' columns, ``fr`` the largest power of two up to 16 that keeps
-    an FL tile within the slot's 1024 floats (or one row). The most rows a
-    block whose thread's passes over T fit its instance and whose layout
-    fits are taken; at 256² Galerkin two blocks share an SM.
+    n/16 threads hold a row, and a block holds the fewest rows that pair up
+    and make a whole warp: two rows from 256 points up, 32 threads below. A
+    row takes ``_k2_row_floats(n)`` float2 of shared memory. The kernel's
+    launch bounds hold 16 warps an SM whatever the block, so the smallest
+    blocks fill the 132 SMs at least as evenly as larger ones at every batch
+    (256², b=32: 4,096 blocks of one warp in two waves of 2,112, 97 %); on
+    an H100 at 256² and b = 8, 32 and 128 blocks of 32 threads also ran
+    8–34 % faster than blocks of 256 on the Galerkin block, 1–9 % on the
+    aligned layout.
     """
-    m2 = 2 * m
-    k1p = -(-m2 // _K2_KC) * _K2_KC
-    for tx, npmax in _K2_INSTANCES:
-        cols = 4 * (_K2_THREADS // min(tx, 16))  # columns of T a pass covers
-        passes = -(-m2 // cols)
-        if passes > npmax:
-            continue
-        w2 = passes * cols
-        fr = 1
-        while fr < 16 and 2 * fr * w2 <= _K2_SLOT:
-            fr *= 2
-        slot = max(_K2_SLOT, fr * w2)
-        nbytes = 4 * (k1p * (4 * tx + 4) + _K2_STAGES * slot + (jc + fr) * (tx + 1))
-        if nbytes <= _MAX_SMEM:
-            return tx, passes, nbytes
-    return None
-
-
-def _smem_message(n: int, m: int, jc: int) -> str:
-    return (f"spectrum width m={m} with block_cols={jc} at n={n} needs more than "
-            f"{_MAX_SMEM} bytes of shared memory per block of the advection "
-            "kernel, even at 8 rows a block")
+    if not advect_takes(n):
+        raise ValueError(
+            f"the advection kernel takes n a power of two from {_K2_MIN_N} to "
+            f"{_K2_MAX_N}, got n={n}; use fft_impl='fft' or another unfused route")
+    threads = max(32, n // 8)
+    tx = threads // (n // 16)
+    return tx, threads, tx * _k2_row_floats(n) * 8
 
 
 def resolve_block_cols(block_cols, n: int, m: int) -> int:
-    """Physical-column chunk width of K2 (``advect``).
+    """The JAX signature's physical-column chunk width, validated.
 
     ``"auto"`` takes the largest of 64, 32, ... dividing n; ``None`` takes
-    whole rows (n, the resident layout); an int must divide n. Raises where
-    K2 has no layout for the shape (``advect_layout``).
+    whole rows (n); an int must divide n. The card's K2 takes whole rows
+    whatever the value, as the plain version does.
     """
     if block_cols == "auto":
         block_cols = next(c for c in (64, 32, 16, 8, 4, 2, 1) if n % c == 0)
@@ -383,8 +396,6 @@ def resolve_block_cols(block_cols, n: int, m: int) -> int:
         block_cols = n
     if n % block_cols:
         raise ValueError(f"block_cols={block_cols} must divide n={n}")
-    if advect_layout(n, m, block_cols) is None:
-        raise ValueError(_smem_message(n, m, block_cols))
     return block_cols
 
 
@@ -423,6 +434,7 @@ def _fused_rollout(w_hat: Tensor, *, layout: str, grid, viscosity, drag, dt,
     if w.device.type == "cpu":
         run = lambda x: _fused_rollout_plain(x, c, steps, jc)  # noqa: E731
     elif w.device.type == "cuda":
+        advect_layout(c["n"])  # raises where K2 does not take n
         run = lambda x: _rollout(  # noqa: E731
             x, c, steps, jc, (inverse_first, advect, forward_first))
     else:
@@ -464,7 +476,10 @@ def fused_rollout_aligned(
 
 
 def flops_per_sample_step(layout: str, n: int) -> int:
-    """Flops of one sample-step: 5 stages of 4 inverse + 1 forward 2-D DFT."""
+    """Flops of one sample-step as the JAX kernel counts them: 5 stages of 4
+    inverse + 1 forward 2-D DFT, each axis a dense product. The card's K2
+    no longer does that work: its last-axis transforms are FFTs (the
+    ``.cu`` header counts them), so this over-counts the card's work."""
     if layout == "galerkin":
         rows, m = dft2d.galerkin_block(n)
         R = len(rows)

@@ -155,24 +155,27 @@ class RK4CrankNicolsonStepper(IMEXStepper):
 # ms a step of the RK4-CN rollout by route, measured on an NVIDIA H100 80GB
 # HBM3 at a 700 W power limit (``python3 -m tpu_cfd_torch.ops.cuda.route_times
 # --sweep solver``: viscosity 1e-3, medians of three rounds of CUDA events;
-# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES.
+# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES. The two fused
+# columns come from a sweep taken after the advection kernel became radix
+# FFTs in shared memory, the ``fft`` and ``dft_galerkin`` columns from the
+# sweep before it: that change does not touch them.
 _ROUTES = ("dft_galerkin_fused", "dft_aligned_fused", "fft", "dft_galerkin")
 _H100_MS_PER_STEP = {
-    (64, 8): (0.2846, 0.3635, 2.4950, 6.9519),
-    (64, 32): (0.2864, 0.2574, 2.3802, 4.8411),
-    (64, 128): (0.3232, 0.2565, 2.2286, 4.2549),
-    (128, 8): (0.3640, 0.4239, 2.6101, 3.6656),
-    (128, 32): (0.3670, 0.4337, 2.5907, 4.1933),
-    (128, 128): (1.1615, 1.3996, 2.8015, 6.5349),
-    (256, 8): (0.8015, 1.0494, 1.7507, 4.6547),
-    (256, 32): (1.6452, 2.7409, 2.2515, 4.4561),
-    (256, 128): (6.0045, 10.5841, 5.9167, 10.4179),
-    (512, 8): (3.7069, 6.4390, 3.3897, 5.7679),
-    (512, 32): (14.0157, 25.4178, 5.9492, 14.5208),
-    (512, 128): (54.6064, 100.3233, 21.4569, 49.6301),
-    (1024, 8): (32.6973, 64.3784, 6.0034, 20.1682),
-    (1024, 32): (127.3719, 254.1849, 21.5080, 74.7591),
-    (1024, 128): (497.9074, 997.2236, 83.1835, 289.6081),
+    (64, 8): (0.2934, 0.3531, 2.4950, 6.9519),
+    (64, 32): (0.2764, 0.3474, 2.3802, 4.8411),
+    (64, 128): (0.2773, 0.3913, 2.2286, 4.2549),
+    (128, 8): (0.2687, 0.2948, 2.6101, 3.6656),
+    (128, 32): (0.2680, 0.3024, 2.5907, 4.1933),
+    (128, 128): (0.8050, 0.9728, 2.8015, 6.5349),
+    (256, 8): (0.3837, 0.4770, 1.7507, 4.6547),
+    (256, 32): (0.9744, 1.6238, 2.2515, 4.4561),
+    (256, 128): (3.4258, 6.1468, 5.9167, 10.4179),
+    (512, 8): (1.8111, 3.0693, 3.3897, 5.7679),
+    (512, 32): (6.4703, 11.8722, 5.9492, 14.5208),
+    (512, 128): (24.7084, 45.9548, 21.4569, 49.6301),
+    (1024, 8): (11.3230, 23.4707, 6.0034, 20.1682),
+    (1024, 32): (43.6181, 91.6701, 21.5080, 74.7591),
+    (1024, 128): (172.1848, 360.7266, 83.1835, 289.6081),
 }
 
 
@@ -198,19 +201,28 @@ def recommended_fft_impl(
     nearest (n, b) of n ∈ {64, ..., 1024}, b ∈ {8, 32, 128}
     (``_H100_MS_PER_STEP``).
 
-    fp32 dealiased runs take the hand-written fused RK4-CN kernel where it
-    wins: on the Galerkin block (``dft_galerkin_fused``) at 128² and 256²
-    below b=128 (256², b=32: 1.6452 ms a step against 2.2515 for
-    ``torch.fft``; b=8: 0.8015 against 1.7507) and at 64², b=8, on the
-    aligned layout (``dft_aligned_fused``) at 64², b ≥ 32 (0.2574 against
-    0.2864 on the Galerkin block). ``torch.fft`` (``fft``) wins from 512² up
-    (1024², b=32: 21.508 against 127.37 for the kernel, whose dense DFTs
-    grow as n³) and at 256², b=128 (5.9167 against 6.0045, rounds
-    5.91–5.95 against 6.00–6.04). fp64 runs and runs without dealiasing take
-    ``fft``: the kernel is fp32-only and steps on the 2/3-rule block.
+    fp32 dealiased runs take the hand-written fused RK4-CN kernel on the
+    Galerkin block (``dft_galerkin_fused``) from 64² to 256² at every
+    measured batch and at 512², b=8 (256², b=32: 0.9744 ms a step against
+    2.2515 for ``torch.fft``). ``torch.fft`` (``fft``) wins at 512² from
+    b=32 up and at 1024² (1024², b=32: 21.508 against 43.618 for the kernel,
+    whose dense first-axis DFTs grow as n³). Since the advection kernel
+    became radix FFTs, four points changed route: 256², b=128 and 512², b=8
+    went from ``fft`` to the kernel (3.4258 against 5.9167; 1.8111 against
+    3.3897), and 64², b=32 and b=128 from the aligned layout
+    (``dft_aligned_fused``) to the Galerkin block (0.2764 against 0.3474;
+    0.2773 against 0.3913), so the aligned layout is the default nowhere.
+    fp64 runs and runs without dealiasing take ``fft``: the kernel is
+    fp32-only and steps on the 2/3-rule block. An n the kernel does not
+    take (not a power of two from 16 to 2048) takes
+    ``recommended_unfused_impl``'s route.
     """
     if double or not dealias:
         return "fft"
+    from tpu_cfd_torch.ops.cuda import spectral_step
+
+    if not spectral_step.advect_takes(grid_size):
+        return recommended_unfused_impl(grid_size, batch_size, double, dealias)
     ms = _measured_ms(grid_size, batch_size)
     return min(ms, key=ms.get)
 
