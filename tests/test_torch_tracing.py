@@ -6,8 +6,10 @@ Without a profiler a span is one shared no-op context. Under
 ``gen.to_host`` for every recorded chunk, ``train.step`` holding
 ``train.forward``, ``train.backward`` and ``train.optimizer``,
 ``train.gather`` for each step's window and ``train.eval`` for each
-validation batch. A run under the profiler gives the bits of the same run
-without one.
+validation batch; ``solver.explicit`` and ``solver.implicit`` for each
+explicit evaluation and implicit solve of an IMEX step, ``gen.extra_vars``
+for each chunk that records fields beyond the vorticity. A run under the
+profiler gives the bits of the same run without one.
 """
 
 import contextlib
@@ -22,7 +24,7 @@ import torch
 from tpu_cfd_torch import grids
 from tpu_cfd_torch.data import generate
 from tpu_cfd_torch.models import SFNO
-from tpu_cfd_torch.solvers import equations
+from tpu_cfd_torch.solvers import equations, forcings
 from tpu_cfd_torch.train import losses, pipeline
 from tpu_cfd_torch.utils import profile_to, trace_annotation
 
@@ -93,6 +95,65 @@ def test_generation_batch_spans(tmp_path):
     assert all(s[2] <= records[0][1] for s in _named(spans, "solver.forward")[:3])
 
 
+IMEX_SPANS = {"solver.explicit", "solver.implicit", "gen.extra_vars"}
+
+
+def _imex_generate(order=2, fields=("vorticity", "stream", "vort_t", "residual"), n=32):
+    """The FNO dataset's solver (IMEX, SinCos forcing) at ``n``²: one step
+    as warm-up, then 2 records 2 steps apart in one chunk of ``fields``."""
+    grid = grids.Grid((n, n), domain=((0, 1.0), (0, 1.0)))
+    forcing = forcings.SinCosForcing(grid=grid, scale=0.1, diam=1.0, vorticity=True)
+    ns2d = equations.NavierStokes2DSpectral(
+        viscosity=1e-3, grid=grid, forcing_fn=forcing,
+        solver=equations.IMEXStepper(order=order), fft_impl="fft",
+        dtype=torch.float32, device="cpu")
+    run = generate.make_batch_pipeline(ns2d, 1e-3, 1, 3, 2, n // 2, fields=fields)
+    w0 = torch.randn(2, n, n, generator=torch.Generator().manual_seed(3))
+    return run(torch.fft.rfft2(w0))
+
+
+@pytest.mark.parametrize("order,per_step", [(2, 2), (1.5, 1), (1, 1)])
+def test_imex_step_spans(tmp_path, order, per_step):
+    """Each IMEX step opens ``solver.explicit`` and ``solver.implicit`` once
+    an evaluation and a solve (order 2: twice each), inside its
+    ``solver.forward``; 1 + 1 + 2 steps."""
+    plain = _imex_generate(order)
+    with profile_to(str(tmp_path)) as d:
+        traced = _imex_generate(order)
+    for k in plain:
+        np.testing.assert_array_equal(traced[k], plain[k])
+    spans = _spans(d)
+    forwards = _named(spans, "solver.forward")
+    assert len(forwards) == 3
+    for name in ("solver.explicit", "solver.implicit"):
+        inner = _named(spans, name)
+        assert len(inner) == 4 * per_step
+        assert all(any(_inside(s, f) for f in forwards) for s in inner)
+
+
+def test_extra_fields_span(tmp_path):
+    """A chunk that records the stream function, ∂ω/∂t and the residual
+    opens one ``gen.extra_vars`` inside its ``gen.record``; a vorticity-only
+    chunk opens none."""
+    with profile_to(str(tmp_path / "extra")) as d:
+        _imex_generate()
+    spans = _spans(d)
+    (extra,), (record,) = _named(spans, "gen.extra_vars"), _named(spans, "gen.record")
+    assert _inside(extra, record)
+    with profile_to(str(tmp_path / "plain")) as d:
+        _imex_generate(fields=("vorticity",))
+    assert not _named(_spans(d), "gen.extra_vars")
+
+
+def test_rk4_cn_and_vorticity_records_open_no_imex_span(tmp_path):
+    """The low-storage RK4-CN steps and a vorticity-only recorder open none
+    of the IMEX and extra-field spans."""
+    with profile_to(str(tmp_path)) as d:
+        _generate()
+    names = {s[0] for s in _spans(d)}
+    assert "solver.forward" in names and not names & IMEX_SPANS
+
+
 def _train(n=16, frames=12, steps=4, batch=2):
     torch.manual_seed(0)
     model = SFNO(modes_x=4, modes_y=4, modes_t=3, width=4, num_spectral_layers=2,
@@ -138,7 +199,7 @@ def test_training_epoch_and_eval_spans(tmp_path):
     assert len(_named(spans, "train.eval")) == 2
 
 
-@pytest.mark.parametrize("fn", [_generate, _train])
+@pytest.mark.parametrize("fn", [_generate, _train, _imex_generate])
 def test_no_spans_outside_profiler(fn, monkeypatch):
     """Without a profiler no span of the program reaches ``record_function``
     (torch's optimizer opens its own ranges whatever the profiler)."""
@@ -151,4 +212,4 @@ def test_no_spans_outside_profiler(fn, monkeypatch):
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", Counting)
     fn()
-    assert not PROGRAM_SPANS & set(calls)
+    assert not (PROGRAM_SPANS | IMEX_SPANS) & set(calls)

@@ -486,13 +486,11 @@ def main_kolmogorov(argv=None):
     )
 
 
-def main_fno(argv=None):
-    """The FNO paper's dataset: GRF initial vorticity, SinCos forcing, IMEX
-    order 2."""
-    argv = list(sys.argv[1:] if argv is None else argv)
-    args = get_parser("fno").parse_args(argv)
-    if args.data_parallel and not dist.is_initialized():
-        return parallel.launch(main_fno, argv, cuda=not args.no_cuda)
+def fno_objects(args):
+    """The FNO paper's dataset at the ``fno`` CLI's ``args``: the initial
+    vorticity a sample at a time (a GRF drawn from each sample's generator),
+    the SinCos forcing and the IMEX order-2 stepper, as ``(make_ic,
+    forcing, solver)`` for ``run_generation``."""
     diam = data_utils.parse_diam(args.diam)
     n = args.grid_size
     grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
@@ -511,10 +509,19 @@ def main_fno(argv=None):
             for i in sample_ids
         ])
 
-    return run_generation(
-        args, make_ic, forcing_fn=forcing, solver=IMEXStepper(order=2),
-        example_name="fnodata",
-    )
+    return make_ic, forcing, IMEXStepper(order=2)
+
+
+def main_fno(argv=None):
+    """The FNO paper's dataset: GRF initial vorticity, SinCos forcing, IMEX
+    order 2 (``fno_objects``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = get_parser("fno").parse_args(argv)
+    if args.data_parallel and not dist.is_initialized():
+        return parallel.launch(main_fno, argv, cuda=not args.no_cuda)
+    make_ic, forcing, solver = fno_objects(args)
+    return run_generation(args, make_ic, forcing_fn=forcing, solver=solver,
+                          example_name="fnodata")
 
 
 _MAINS = {

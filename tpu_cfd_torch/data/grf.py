@@ -50,6 +50,9 @@ class GRF2d:
     smoothing: bool = False
     max_mesh_size: int = 2048
     dtype: torch.dtype = torch.float32
+    # ``sample``'s spectra, one a (parameters, n, device)
+    _spectra: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                       compare=False)
 
     def sqrt_eig(self, n: Optional[int] = None, device=None) -> Tensor:
         n = self.n if n is None else n
@@ -64,6 +67,16 @@ class GRF2d:
         )
         sqrt_eig[0, 0] = 0.0
         return sqrt_eig
+
+    def _spectrum(self, n: int, device) -> Tensor:
+        """``sqrt_eig(n, device)``, built once: built anew it copies the
+        wavenumbers from the host, a copy that waits for every operation
+        queued on the device, which a sampler called a sample at a time
+        would pay once a sample."""
+        key = (self.dim, self.alpha, self.tau, self.dtype, n, device)
+        if key not in self._spectra:
+            self._spectra[key] = self.sqrt_eig(n, device=device)
+        return self._spectra[key]
 
     def sample(
         self,
@@ -94,7 +107,7 @@ class GRF2d:
         coeff = torch.stack([
             _resize_bilinear(z.to(dtype=self.dtype, device=device), n) for z in noise])
         coeff = torch.complex(coeff[:, 0], coeff[:, 1])
-        coeff = self.sqrt_eig(n, device=coeff.device) * coeff
+        coeff = self._spectrum(n, coeff.device) * coeff
         s = torch.fft.ifftn(coeff, dim=(-2, -1)).real
         if self.normalize:
             s = s / torch.linalg.vector_norm(s / n, dim=(-2, -1), keepdim=True)

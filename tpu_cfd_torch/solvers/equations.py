@@ -79,6 +79,9 @@ class IMEXStepper:
 
     order=1: forward-backward Euler (alpha=1); order=1.5: Crank-Nicolson
     IMEX (alpha=0.5); order=2: RK2 Crank-Nicolson (Chandler & Kerswell 2013).
+    Spans (``utils.trace_annotation``): ``solver.explicit`` around each
+    evaluation of the explicit terms, ``solver.implicit`` around each
+    implicit solve.
     """
 
     order: float = 2
@@ -96,8 +99,11 @@ class IMEXStepper:
         alpha = 1.0 if self.order == 1 else self.alpha
         F = equation.explicit_terms
         G = equation.implicit_terms
-        g = u + dt * F(u) + (1 - alpha) * dt * G(u)
-        return equation.implicit_solve(g, alpha * dt)
+        with trace_annotation("solver.explicit"):
+            f = F(u)
+        g = u + dt * f + (1 - alpha) * dt * G(u)
+        with trace_annotation("solver.implicit"):
+            return equation.implicit_solve(g, alpha * dt)
 
     def _rk2_crank_nicolson(self, u: Tensor, dt: float,
                             equation: ImplicitExplicitODE) -> Tensor:
@@ -106,10 +112,15 @@ class IMEXStepper:
         G = equation.implicit_terms
         G_inv = equation.implicit_solve
         g = u + beta * dt * G(u)
-        h = F(u)
-        u = G_inv(g + dt * h, beta * dt)
-        h = alpha * F(u) + (1 - alpha) * h
-        return G_inv(g + dt * h, beta * dt)
+        with trace_annotation("solver.explicit"):
+            h = F(u)
+        with trace_annotation("solver.implicit"):
+            u = G_inv(g + dt * h, beta * dt)
+        with trace_annotation("solver.explicit"):
+            f = F(u)
+        h = alpha * f + (1 - alpha) * h
+        with trace_annotation("solver.implicit"):
+            return G_inv(g + dt * h, beta * dt)
 
 
 # Carpenter-Kennedy low-storage coefficients

@@ -147,17 +147,21 @@ _ALL_TRAJECTORY_FIELDS = ("vorticity", "stream", "vort_t", "residual")
 
 
 def _stack_records(equation, ws, dwdts, fields) -> Dict[str, Tensor]:
-    """Time-major (t, ..., kx, ky) records -> records dict, time at -3."""
+    """Time-major (t, ..., kx, ky) records -> records dict, time at -3. One
+    ``gen.extra_vars`` span (``utils.trace_annotation``) covers the fields
+    beyond the vorticity, where any is asked for."""
     rec = {}
     if "vorticity" in fields:
         rec["vorticity"] = ws
-    if "stream" in fields:
-        _, psi = vorticity_to_velocity(equation.grid, ws)
-        rec["stream"] = psi
-    if "vort_t" in fields:
-        rec["vort_t"] = dwdts
-    if "residual" in fields:
-        rec["residual"] = equation.residual(ws, dwdts)
+    if set(fields) - {"vorticity"}:
+        with trace_annotation("gen.extra_vars"):
+            if "stream" in fields:
+                _, psi = vorticity_to_velocity(equation.grid, ws)
+                rec["stream"] = psi
+            if "vort_t" in fields:
+                rec["vort_t"] = dwdts
+            if "residual" in fields:
+                rec["residual"] = equation.residual(ws, dwdts)
     return {k: torch.movedim(v, 0, -3) for k, v in rec.items()}
 
 
