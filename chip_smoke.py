@@ -306,6 +306,12 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# the radix-FFT kernels of the RK4-CN stage, by the name of their entry
+# point, and the name of their device function
+FFT_KERNELS = {"spectral_inverse_first": "inverse_fft_kernel",
+               "spectral_advect": "advect_fft_kernel"}
+
+
 def device_ms(fn, kernel: str, iters: int = 20, sessions: int = 3):
     """ms on the device of one launch of the kernel whose name holds
     ``kernel`` (torch.profiler), for an ``fn`` that launches it once: without
@@ -943,9 +949,11 @@ def main() -> int:
         "spectral_inverse_first": (
             lambda: ss.inverse_first(w, c),
             lambda: ss._inverse_first_plain(w, c),
-            # flops: 4 fields x complex (n x R)(R x m); bytes: w, G, cf, A
-            B * 32 * N * R * m,
-            B * R * m * 8 + N * R * 8 + 4 * R * m * 4 + B * 4 * N * m * 8),
+            # by the FFT rule, as the kernel does it: a complex n-point FFT
+            # (5 n log2 n) a column of each field and the multipliers (3 a
+            # kept mode and field); w and cf read and A written once
+            B * (4 * m * 5 * N * math.log2(N) + 12 * R * m),
+            B * R * m * 8 + 4 * R * m * 4 + B * 4 * N * m * 8),
         "spectral_advect": (
             lambda: ss.advect(A, c, jc),
             lambda: ss._advect_plain(A, c),
@@ -1441,8 +1449,8 @@ def main() -> int:
             r["device_ms"] = device_ms(kern, "ffn_kernel")
         r["plain_ms"] = cuda_ms(plain, 20)
         r["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
-        # K2's FFTs are no product: their flops are bound at FFMA
-        r.update(_bound(flops, nbytes, product=name != "spectral_advect"))
+        # K1's and K2's FFTs are no product: their flops are bound at FFMA
+        r.update(_bound(flops, nbytes, product=name not in FFT_KERNELS))
     chain_ms = cuda_ms(chain, 20)
 
     # the RK4-CN stage's kernels in both layouts at b=32, and the rollouts
@@ -1485,6 +1493,16 @@ def main() -> int:
               f"{100 * spread[k]['spread']:.1f} %)", flush=True)
     for name in kernels:
         results[name]["ms"] = spread[f"{name} galerkin"]["median"]
+    # K1 and K2 take a few tens of microseconds, about what a launch through
+    # the wrapper takes the host, so their events time the host: the device's
+    # time comes from the profiler, on both layouts
+    step_device_ms = {f"{name} {layout}": device_ms(step_kernels[f"{name} {layout}"], kern)
+                      for name, kern in FFT_KERNELS.items()
+                      for layout in ("galerkin", "aligned")}
+    for k, ms in step_device_ms.items():
+        print(f"time {k} on the device: {fmt_ms(ms)} ms", flush=True)
+    for name in FFT_KERNELS:
+        results[name]["device_ms"] = step_device_ms[f"{name} galerkin"]
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         tf = "" if r.get("bound_tf32x3_ms") is None else (
@@ -2065,7 +2083,7 @@ def main() -> int:
     g_records = -(-g_total // g_every)  # 25 at the demo's arguments
     demo_steps = (int(g["--num-samples"]) // int(g["--batch-size"])) * (
         int(float(g["--time-warmup"]) / g_dt) + 1 + (g_records - 1) * g_every)
-    fused = int(demo_meta["fft_impl"] == "dft_galerkin_fused")
+    fused = int(demo_meta["fft_impl"].endswith("_fused"))
     layers = ex2_train_and_finetune.MODEL["num_spectral_layers"]
     lat, width, mx = (ex2_train_and_finetune.MODEL[k] for k in ("latent_steps", "width",
                                                                   "modes_x"))
@@ -2565,6 +2583,7 @@ def main() -> int:
         for name, r in results.items() for src, key in [sources[name]]],
         "launches_main_path_3": {"float32": sweep_launches, "bfloat16_scan8": bf16_launches},
         "adam_steps": adam_rows, "two_pass_ms": two_pass, "timed_x3": spread,
+        "step_device_ms": step_device_ms,
         "ffn_other_instances": ffn_other, "sweep_steps": sweep_rows,
         "sweep_profile": sweep_profile, "fno3d_step": fno_row,
         "fno3d_history": fhist,

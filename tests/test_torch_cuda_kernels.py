@@ -145,14 +145,15 @@ def test_inverse_route_matches_plain(dev, n, m, b, planes, fused):
 
 
 # the dry run's 16^2, 64^2 (the route table's smallest size), 128^2 at the
-# fine-tune demo's b=4, 256^2, 512^2 and 1024^2, both layouts: K2 at each
-# radix of its last pass (16, 2, 4, 8, 16, 2, 4) and at one to three passes
+# fine-tune demo's b=4, 256^2 (at an odd batch too, a partial wave of K1's
+# blocks), 512^2, 1024^2 and 2048^2, both layouts: K1 and K2 at each radix of
+# their last pass (16, 2, 4, 8, 16, 2, 4, 8) and at one to three passes
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
-@pytest.mark.parametrize("n,b", [(16, 3), (32, 3), (64, 2), (128, 4), (256, 2), (512, 1),
-                                 (1024, 1)])
+@pytest.mark.parametrize("n,b", [(16, 3), (32, 3), (64, 2), (128, 4), (256, 2), (256, 3),
+                                 (512, 1), (1024, 1), (2048, 1)])
 def test_spectral_step_kernels_match_plain(dev, layout, n, b):
     """K1, K2 and K3 of the RK4-CN stage vs their plain versions, one launch
-    each, at every K2 instance the main paths and the route table use."""
+    each, at every K1 and K2 instance: every n the kernels take."""
     grid = grids.Grid((n, n), domain=((0, 2 * np.pi), (0, 2 * np.pi)))
     gen = torch.Generator(device=dev).manual_seed(9)
     c = ss.constants(layout, grid, 1e-3, 0.1, 1e-3, dev)

@@ -214,8 +214,9 @@ class TestLayouts:
             teq.NavierStokes2DSpectral(viscosity=1e-3, grid=tg)
 
     def test_recommended_fft_impl(self):
-        # the H100 table: the fused kernel on the Galerkin block up to 256²
-        # and at 512², b=8; torch.fft at 512² from b=32 and at 1024²
+        # the H100 table: the fused kernel on the Galerkin block at every
+        # measured point; at 128², b=8 the aligned layout is faster by less
+        # than the route margin, so the block keeps it
         assert teq.recommended_fft_impl(256, 32) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(256, 8) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(64, 1) == "dft_galerkin_fused"
@@ -223,8 +224,9 @@ class TestLayouts:
         assert teq.recommended_fft_impl(64, 32) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(256, 128) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(512, 8) == "dft_galerkin_fused"
-        assert teq.recommended_fft_impl(512, 32) == "fft"
-        assert teq.recommended_fft_impl(1024, 32) == "fft"
+        assert teq.recommended_fft_impl(512, 32) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(1024, 32) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(128, 8) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(4096, 1) == "fft"
         assert teq.recommended_fft_impl(256, 32, double=True) == "fft"
         assert teq.recommended_fft_impl(256, 32, dealias=False) == "fft"
@@ -240,7 +242,10 @@ class TestLayouts:
     def test_recommended_impls_are_the_measured_fastest(self, n, b):
         ms = dict(zip(teq._ROUTES, teq._H100_MS_PER_STEP[(n, b)]))
         best = teq.recommended_fft_impl(n, b)
-        assert all(ms[best] <= t for t in ms.values())
+        # the fastest, or the Galerkin block's kernel within the margin of it
+        fastest = min(ms.values())
+        assert ms[best] == fastest or (best == "dft_galerkin_fused"
+                                       and ms[best] <= fastest * teq._ROUTE_MARGIN)
         unfused = teq.recommended_unfused_impl(n, b)
         assert not unfused.endswith("_fused")
         assert all(ms[unfused] <= t for r, t in ms.items() if not r.endswith("_fused"))
@@ -250,6 +255,17 @@ class TestLayouts:
         assert teq.recommended_fft_impl(n, int(b * 1.2) + 1) == best
         assert teq.recommended_fft_impl(int(n * 1.2), int(b * 1.2) + 1) == (
             unfused if best.endswith("_fused") else best)
+
+    @pytest.mark.parametrize("times,want", [
+        ((1.0, 0.96, 2.0, 3.0), "dft_galerkin_fused"),  # 4 % faster: within the margin
+        ((1.0, 0.94, 2.0, 3.0), "dft_aligned_fused"),   # 6 % faster: beyond it
+        ((1.0, 2.0, 0.96, 3.0), "dft_galerkin_fused"),
+        ((1.0, 2.0, 0.94, 3.0), "fft"),
+        ((1.0, 1.0, 2.0, 3.0), "dft_galerkin_fused"),   # a tie keeps the block
+    ])
+    def test_route_margin(self, monkeypatch, times, want):
+        monkeypatch.setattr(teq, "_H100_MS_PER_STEP", {(256, 32): times})
+        assert teq.recommended_fft_impl(256, 32) == want
 
 
 class TestTrajectories:

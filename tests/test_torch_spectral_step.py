@@ -6,10 +6,12 @@ it) and against the JAX unfused solver, on the same numpy inputs:
 rel-L2 < 5e-6 against JAX "highest", < 1e-3 against JAX "high"
 (the tolerances of tests/test_fused_step.py). The CUDA kernels themselves
 run only on the card: the test marked ``cuda`` holds them against the plain
-version there and skips here. What the card's advection kernel (K2) computes
-by FFTs is held here instead: its packing of rows into complex transforms
+version there and skips here. What the card's kernels compute by FFTs is
+held here instead: the first-axis kernel's (K1) slot map and transforms
+(with ``torch.fft``) and its shared-memory indexing against the plain
+version, the advection kernel's (K2) packing of rows into complex transforms
 (with ``torch.fft``) against the plain version, its Stockham passes and
-twiddle table against ``numpy.fft``, and its block layout rule.
+twiddle table against ``numpy.fft``, and both kernels' block layout rules.
 """
 
 import jax
@@ -335,6 +337,151 @@ def test_packed_fft_scheme_matches_plain(layout, n):
     assert _rel(_advect_packed(A, n, by_size=False).numpy(), want.numpy()) < 1e-5
 
 
+def _k1_slots(n, R):
+    """The card's K1 puts kept row r at slot r below R/2 and at n - R + r
+    from R/2 up."""
+    return np.array([r if r < R // 2 else n - R + r for r in range(R)])
+
+
+def _inverse_first_fft(w, c, n):
+    """K1's function by the card kernel's scheme, with torch.fft: each
+    field's R rows scattered to their slots of an n-point column (zeros
+    elsewhere), times i c_f, and the inverse transform along the first axis
+    (1/n normalised, as G is)."""
+    z = torch.zeros(w.shape[0], 4, n, c["m"], dtype=torch.complex64)
+    z[:, :, torch.from_numpy(_k1_slots(n, c["R"]))] = w.unsqueeze(1) * (1j * c["cf"])
+    return torch.fft.ifft(z, dim=-2)
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n", [16, 32, 64, 256])
+def test_inverse_fft_scheme_matches_plain(layout, n):
+    """The card's first-axis FFTs compute the dense product G (i c_f w) of
+    the plain version (rel-L2 < 1e-5, batch 3): the slots are the Galerkin
+    block's signed rows, with the zero gap between kmax and n - kmax, and
+    the identity on the aligned layout."""
+    grid = tgrids.Grid((n, n), domain=DOMAIN)
+    c = tss.constants(layout, grid, 1e-3, 0.0, DT, "cpu")
+    R = c["R"]
+    slots = _k1_slots(n, R)
+    if layout == "galerkin":
+        rows, _ = tdft.galerkin_block(n)
+        kmax = R // 2
+        assert np.array_equal(slots, rows) and R < n
+        assert set(range(kmax, n - kmax)).isdisjoint(slots)
+    else:
+        assert np.array_equal(slots, np.arange(n))
+    w = torch.randn(3, R, c["m"], dtype=torch.complex64,
+                    generator=torch.Generator().manual_seed(n))
+    want = tss._inverse_first_plain(w, c)
+    assert _rel(_inverse_first_fft(w, c, n).numpy(), want.numpy()) < 1e-5
+
+
+def _k1_strides(n, R, tc):
+    """K1's shared-memory strides as the kernel computes them: staged rows
+    ``tc | 1`` apart, multiplier planes ``cfs`` floats apart and output
+    planes ``fs`` float2 apart (``k1_cf_stride``, ``k1_out_stride``)."""
+    g, tcp = n // 16, tc | 1
+    return tcp, R * tcp + (g * tcp - R * tcp) % 32, n * tcp + g * tcp % 16
+
+
+def _k1_phase_bytes(n, R, tc, fb):
+    """Bytes of each phase a K1 block keeps in shared memory, as the kernel
+    sizes them (``k1_smem`` takes the largest): (1) w's tile and fb planes
+    of multipliers, (2) tc fb exchange rows of n points, one float2 of
+    padding every 16, (3) fb planes of outputs."""
+    tcp, cfs, fs = _k1_strides(n, R, tc)
+    return 8 * R * tcp + 4 * fb * cfs, 8 * tc * fb * (n + n // 16), 8 * fb * fs
+
+
+def _k1_blocks(w, cf, n, tc, fb):
+    """The card's K1 as its blocks index shared memory: thread tid stages
+    column tid % tc of rows tid / tc + j fb G of w and of fb multiplier
+    planes (rows tc | 1 apart, planes ``cfs`` apart), transform (col, fl)
+    reads its points p = t + G k from there, the outputs go point-major
+    (planes ``fs`` apart) and come back as rows of A. Each phase's arrays
+    hold exactly the bytes ``_k1_phase_bytes`` gives, so every index stays
+    inside them, and every entry of A is written once."""
+    b, R, m = w.shape
+    g, rstep = n // 16, fb * n // 16
+    tcp, cfs, fs = _k1_strides(n, R, tc)
+    staged, _, outs = _k1_phase_bytes(n, R, tc, fb)
+    tid = np.arange(tc * fb * g)
+    t, i = tid % g, tid // g
+    col, fl = i // fb, i % fb
+    cc, r0 = tid % tc, tid // tc
+    A = np.zeros((b, 4, n, m), complex)
+    hits = np.zeros((b, 4, n, m), int)
+    for s in range(b):
+        for f0 in range(0, 4, fb):
+            for c0 in range(0, m, tc):
+                ws = np.zeros(R * tcp, complex)
+                cs = np.zeros(fb * cfs)
+                assert 8 * ws.size + 4 * cs.size == staged
+                live = cc < m - c0
+                for r in range(R):
+                    th = (r0 % rstep == r % rstep) & (r0 <= r)  # threads staging row r
+                    assert th.sum() == tc
+                    o = r * tcp + cc[th]
+                    cols = np.minimum(c0 + cc[th], m - 1)
+                    ws[o] = np.where(live[th], w[s, r, cols], 0)
+                    for q in range(fb):
+                        cs[q * cfs + o] = np.where(live[th], cf[f0 + q, r, cols], 0)
+                p = t[:, None] + g * np.arange(16)[None]
+                kept = (p < R // 2) | (p >= n - R // 2)
+                r = np.where(p < R // 2, p, p - (n - R))
+                z = np.where(kept, ws[col[:, None] + r * tcp]
+                             * 1j * cs[fl[:, None] * cfs + col[:, None] + r * tcp], 0) / n
+                cols_ = np.zeros((tc * fb, n), complex)
+                cols_[i[:, None], p] = z
+                out = n * np.fft.ifft(cols_, axis=-1)
+                os_ = np.zeros(fb * fs, complex)
+                assert 8 * os_.size == outs
+                x = t[:, None] + g * np.arange(16)[None]
+                os_[fl[:, None] * fs + x * tcp + col[:, None]] = out[i[:, None], x]
+                row = r0[:, None] + rstep * np.arange(16)[None]
+                q, xx = row // n, row % n
+                ok = np.broadcast_to(live[:, None], row.shape)
+                cols = np.broadcast_to((c0 + cc)[:, None], row.shape)
+                A[s, f0 + q[ok], xx[ok], cols[ok]] = os_[(q * fs + xx * tcp + cc[:, None])[ok]]
+                hits[s, f0 + q[ok], xx[ok], cols[ok]] += 1
+    assert (hits == 1).all()
+    return A
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n,tc,fb", [(16, 8, 4), (64, 8, 4), (64, 3, 1), (64, 5, 4),
+                                     (256, 8, 1)])
+def test_inverse_kernel_indexing(layout, n, tc, fb):
+    """K1's staging, slot map and point-major outputs, as the card kernel
+    indexes them (``_k1_blocks``), give the plain version's A (rel-L2
+    < 1e-5, batch 2), with tiles that overrun m and odd column counts."""
+    c = tss.constants(layout, tgrids.Grid((n, n), domain=DOMAIN), 1e-3, 0.0, DT, "cpu")
+    w = torch.randn(2, c["R"], c["m"], dtype=torch.complex64,
+                    generator=torch.Generator().manual_seed(n + tc))
+    got = _k1_blocks(w.numpy(), c["cf"].numpy(), n, tc, fb)
+    assert _rel(got, tss._inverse_first_plain(w, c).numpy()) < 1e-5
+
+
+def test_inverse_layout_by_shape():
+    """K1's block rule: 8 columns a block (4 from 1024²), all four fields up
+    to 128² and one from 256², n/16 threads a column's transform; a whole
+    number of warps up to 512 threads (the kernel's launch bound), within a
+    block's 232,448 bytes of shared memory at every n it takes, in both
+    layouts; an n it does not take raises."""
+    assert tss.inverse_layout(256, 170) == (8, 1, 128)
+    assert max(_k1_phase_bytes(256, 170, 8, 1)) == 18_448
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048):
+        for R in (len(tdft.galerkin_block(n)[0]), n):
+            tc, fb, threads = tss.inverse_layout(n, R)
+            assert (tc, fb) == ((8 if n <= 512 else 4), (4 if n <= 128 else 1))
+            assert threads == tc * fb * n // 16 and threads % 32 == 0 and threads <= 512
+            assert max(_k1_phase_bytes(n, R, tc, fb)) <= 232_448
+    for n in (8, 96, 4096):
+        with pytest.raises(ValueError, match="power of two from 16 to 2048"):
+            tss.inverse_layout(n, n)
+
+
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
 def test_packing_pairs_fields_of_like_size(layout):
     """Why the kernel packs u with v and ∂ω/∂x with ∂ω/∂y: in fp32 a complex
@@ -427,12 +574,12 @@ def test_cpu_rollout_takes_any_n():
 
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
 def test_kernel_operand_layouts(layout):
-    """The kernels' copies of the constants: G and F transposed, the four
-    multipliers of a mode side by side, K2's twiddle table (and no dense
-    last-axis matrix for it)."""
+    """The kernels' copies of the constants: F transposed for K3, the FFTs'
+    twiddle table, the four multipliers as (4, R, m) planes for K1 (and no
+    dense matrix for the axes the FFTs take)."""
     c = tss.constants(layout, TG, 1e-3, 0.0, DT, "cpu")
-    assert torch.equal(c["GT"], c["G"].T) and torch.equal(c["FT"], c["F"].T)
-    assert torch.equal(c["cf4"], c["cf"].permute(1, 2, 0))
+    assert torch.equal(c["FT"], c["F"].T)
+    assert c["cf"].dtype == torch.float32 and tuple(c["cf"].shape) == (4, c["R"], c["m"])
     assert torch.equal(c["tw"], torch.from_numpy(tss._twiddles(N)))
-    assert "il" not in c
-    assert all(c[k].is_contiguous() for k in ("GT", "FT", "cf4", "tw"))
+    assert not {"il", "GT", "cf4"} & set(c)
+    assert all(c[k].is_contiguous() for k in ("FT", "cf", "tw"))

@@ -11,8 +11,8 @@
 //
 //   K1 spectral_inverse_first: the stream function and the four spectral
 //      multipliers (u, v, d/dx w, d/dy w are each i*c_f*w) fused into the
-//      first-axis inverse DFT, A_f = G @ (i c_f w): a batched complex
-//      (n x R)(R x m) product for the four fields.
+//      first-axis inverse transforms of the four fields' columns, as radix
+//      FFTs in shared memory.
 //   K2 spectral_advect: TX physical rows a block: the inverse last-axis
 //      transforms of the four fields, the advection product
 //      -(u dw/dx + v dw/dy) and the forward last-axis transform, as radix
@@ -27,34 +27,44 @@
 // precision mode, so all three modes compute at least the accuracy that
 // "highest" asks for.
 //
-// K1 and K3 are dense products: per sample and step 5 * 32 n R m flops
-// (K1) and 5 * 8 n R m (K3), at 256^2 Galerkin (R=170, m=86) 0.60 and 0.15
-// GFLOP, bound by operations at the H100 SXM's 67 TFLOP/s fp32 (NVIDIA
-// data sheet); each is a register-tiled product whose operands are staged
-// in shared memory by cp.async one chunk ahead of the FMAs:
+// K1 and K2 are radix FFTs; both are bound by bytes. n/16 threads hold an
+// n-point transform, 16 points each, and run Stockham passes of radix 16 (the
+// last of radix 2, 4, 8 or 16) in registers with one exchange through shared
+// memory between passes (one float2 of padding every 16, so no bank
+// conflicts). The twiddles come from a host table (float64 rounded to
+// float32); n is a power of two from 16 to 2048, and the host picks each
+// kernel's blocks from the shape (spectral_step.py::inverse_layout,
+// advect_layout).
 //
-//   K1: 64 x 32 (x, c) tiles of all four fields, 16-deep chunks of r; a
-//       thread holds 8 rows x 4 fields, and forms i c_f w for its column
-//       as the operand loads (c_f comes as one float4 of the four fields);
-//   K3: 64 x 32 (r, c) tiles, 32-deep chunks of x, 4 x 2 a thread, the
-//       Crank-Nicolson update in the epilogue, in place on h and w.
+// K1 takes the first axis: column c of field f is the n-point inverse
+// transform of i c_f w[:, c], its R kept rows put at their wavenumbers' slots
+// (rows 0..R/2-1 at slots 0..R/2-1, the rest at n-R/2..n-1 on the Galerkin
+// block; the identity on the aligned layout) and zeros elsewhere, 1/n
+// normalised as the dense matrix G is. That is 4 m complex FFTs a sample,
+// 5 n log2 n flops each: at 256^2 Galerkin (R=170, m=86), b=32, 0.11 GFLOP a
+// launch against 3.7 MB of w read and 22.5 MB of A written, so K1 is bound by
+// bytes (7.9 us at 3.35 TB/s). A block takes a tile of consecutive columns of
+// one sample and all four fields or one: it stages w's tile and the
+// multipliers with loads coalesced along c, forms i c_f w as each thread
+// reads its points, transforms, and stages the outputs point-major so that
+// A's rows are written along c.
+//
+// K3 is a dense product: per sample and step 5 * 8 n R m flops, at 256^2
+// Galerkin 0.15 GFLOP, a register-tiled product whose operands are staged in
+// shared memory by cp.async one chunk ahead of the FMAs: 64 x 32 (r, c)
+// tiles, 32-deep chunks of x, 4 x 2 a thread, the Crank-Nicolson update in
+// the epilogue, in place on h and w.
 //
 // K2 does by the FFT rule what a dense product would do in n^2 m: u and v
 // of a physical row go into one complex row z1 = u + i v, dw/dx and dw/dy
 // into z2, so that a row takes two complex inverse transforms and the
 // product is -(Re z1 Re z2 + Im z1 Im z2); rows x and x + 1 share one
 // forward transform of adv_x + i adv_{x+1}. That is 2.5 complex n-point
-// FFTs a row, 5 n log2 n flops each: at 256^2, b=32, 0.21 GFLOP a launch
-// against 28 MB of A read and T written once, so K2 is bound by bytes
-// (8.4 us at 3.35 TB/s). n/16 threads hold a row, 16 points each; a block
-// loads its rows of A straight into the Hermitian-extended rows in shared
-// memory (zeros elsewhere), runs Stockham passes of radix 16 (the last of
-// radix 2, 4, 8 or 16) in registers with one exchange through shared memory
-// between passes (one float2 of padding every 16, so no bank conflicts),
-// takes the product in registers, runs the forward passes and writes the m
-// kept bins of T. The twiddles come from a host table (float64 rounded to
-// float32); n is a power of two from 16 to 2048, and the host picks the
-// rows a block from the shape (spectral_step.py::advect_layout).
+// FFTs a row: at 256^2, b=32, 0.21 GFLOP a launch against 28 MB of A read
+// and T written once (8.4 us at 3.35 TB/s). A block loads its rows of A
+// straight into the Hermitian-extended rows in shared memory (zeros
+// elsewhere), runs the inverse passes, takes the product in registers, runs
+// the forward passes and writes the m kept bins of T.
 //
 // Plain C interface: every pointer and the stream are void*, and each
 // entry point returns cudaGetLastError() right after its launch.
@@ -63,8 +73,9 @@
 
 namespace {
 
-constexpr int K13_THREADS = 256;
-constexpr int K1_BM = 64, K1_BN = 32, K1_KC = 16, K1_TM = 8;  // 8 rows x 1 column a thread
+constexpr int K1_THREADS = 512;  // the most threads a K1 block
+constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may have
+constexpr int K3_THREADS = 256;
 constexpr int K3_BM = 64, K3_BN = 32, K3_KC = 32, K3_TM = 4, K3_TN = 2;
 constexpr int K2_THREADS = 256;  // the most threads a K2 block
 
@@ -76,16 +87,16 @@ __device__ __forceinline__ float2 cmac(float2 acc, float2 a, float2 b) {
   return acc;
 }
 
-// cp.async of 8 or 16 bytes; zeros where !ok (nothing is read then)
+// cp.async of 4 or 8 bytes; zeros where !ok (nothing is read then)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
                "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(ok ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -95,86 +106,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// K1: A[s, f, x, c] = sum_r G[x, r] * (i * cf[f, r, c] * w[s, r, c]), with
-// GT = G^T (R x n) and cf4[r, c] = the four fields' multipliers.
-__global__ void __launch_bounds__(K13_THREADS) inverse_first_kernel(
-    const float2* __restrict__ w, const float2* __restrict__ GT,
-    const float4* __restrict__ cf4, float2* __restrict__ A, int R, int m,
-    int n) {
-  extern __shared__ float4 smem4[];
-  float2* Gs = reinterpret_cast<float2*>(smem4);                  // [2][KC][BM]
-  float2* Ws = Gs + 2 * K1_KC * K1_BM;                             // [2][KC][BN]
-  float4* Cs = reinterpret_cast<float4*>(Ws + 2 * K1_KC * K1_BN);  // [2][KC][BN]
-  const int tid = threadIdx.x, tc = tid % K1_BN, tr = tid / K1_BN;
-  const int c0 = blockIdx.x * K1_BN, x0 = blockIdx.y * K1_BM, s = blockIdx.z;
-  const float2* ws = w + (size_t)s * R * m;
-  auto load = [&](int buf, int r0) {
-    for (int i = tid; i < K1_KC * K1_BM; i += K13_THREADS) {
-      const int ri = i / K1_BM, xi = i % K1_BM, r = r0 + ri, x = x0 + xi;
-      const bool ok = r < R && x < n;
-      cp_async8(Gs + (buf * K1_KC + ri) * K1_BM + xi, ok ? GT + (size_t)r * n + x : GT, ok);
-    }
-    for (int i = tid; i < K1_KC * K1_BN; i += K13_THREADS) {
-      const int ri = i / K1_BN, ci = i % K1_BN, r = r0 + ri, c = c0 + ci;
-      const bool ok = r < R && c < m;
-      const size_t o = (size_t)r * m + c;
-      cp_async8(Ws + (buf * K1_KC + ri) * K1_BN + ci, ok ? ws + o : ws, ok);
-      cp_async16z(Cs + (buf * K1_KC + ri) * K1_BN + ci, ok ? cf4 + o : cf4, ok);
-    }
-    cp_async_commit();
-  };
-  float2 acc[4][K1_TM];
-#pragma unroll
-  for (int f = 0; f < 4; ++f)
-#pragma unroll
-    for (int i = 0; i < K1_TM; ++i) acc[f][i] = make_float2(0.f, 0.f);
-
-  const int chunks = (R + K1_KC - 1) / K1_KC;
-  load(0, 0);
-  for (int ch = 0; ch < chunks; ++ch) {
-    if (ch + 1 < chunks)
-      load((ch + 1) & 1, (ch + 1) * K1_KC);
-    else
-      cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float2* G = Gs + (ch & 1) * K1_KC * K1_BM + K1_TM * tr;
-    const float2* W = Ws + (ch & 1) * K1_KC * K1_BN + tc;
-    const float4* C = Cs + (ch & 1) * K1_KC * K1_BN + tc;
-#pragma unroll 8
-    for (int k = 0; k < K1_KC; ++k) {
-      float2 g[K1_TM];
-#pragma unroll
-      for (int i = 0; i < K1_TM / 2; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(G + k * K1_BM + 2 * i);
-        g[2 * i] = make_float2(t.x, t.y);
-        g[2 * i + 1] = make_float2(t.z, t.w);
-      }
-      const float2 wv = W[k * K1_BN];
-      const float4 cv = C[k * K1_BN];
-      const float cf[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const float2 sv = make_float2(-cf[f] * wv.y, cf[f] * wv.x);
-#pragma unroll
-        for (int i = 0; i < K1_TM; ++i) acc[f][i] = cmac(acc[f][i], g[i], sv);
-      }
-    }
-    __syncthreads();
-  }
-  const int c = c0 + tc;
-  if (c >= m) return;
-#pragma unroll
-  for (int i = 0; i < K1_TM; ++i) {
-    const int x = x0 + K1_TM * tr + i;
-    if (x >= n) continue;
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      A[(((size_t)s * 4 + f) * n + x) * m + c] = acc[f][i];
-  }
-}
-
-// K2's radix passes. rot16 turns a by e sixteenths of a turn, clockwise for
+// The radix passes of K1 and K2. rot16 turns a by e sixteenths of a turn, clockwise for
 // the forward transform and counterclockwise for the inverse (e in 0..7);
 // e is known once the loops are unrolled, so its branches fold.
 constexpr float K2_C1 = 0.923879532511286756f;  // cos(pi/8)
@@ -229,9 +161,10 @@ __device__ __forceinline__ void dft(float2 (&u)[R]) {
 
 // An n-point transform, n = 2^LOG2N: G threads hold a row, 16 points each, and
 // it takes PASSES passes, of radix 16 but the last (LAST: 2, 4, 8 or 16). A row
-// in shared memory takes NP float2, one of padding after every 16; a physical
-// row's two rows take RS, which for rows of fewer than 256 points is G modulo
-// 16, so that the rows sharing a half-warp fall on distinct banks.
+// in shared memory takes NP float2, one of padding after every 16 (NP = 17 G,
+// which is G modulo 16, so that rows side by side sharing a half-warp fall on
+// distinct banks, as K1's do); K2's physical row, two rows, takes RS, which
+// for rows of fewer than 256 points is G modulo 16 too.
 template <int LOG2N>
 struct Fft {
   static constexpr int N = 1 << LOG2N, G = N / 16;
@@ -310,6 +243,111 @@ __device__ __forceinline__ void fft_passes(float2 (&v)[NV][16], float2* const (&
         for (int k = 0; k < 16; ++k) v[i][k] = buf[i][pad(t + F::G * k)];
     }
     fft_passes<LOG2N, INV, NV, P + 1>(v, buf, t, tw, act);
+  }
+}
+
+// K1's tiles in shared memory, for tc columns at n = 16 g points (the
+// launcher sizes a block's shared memory from them). The staged rows are
+// tcp = tc | 1 apart, an odd number, so that a transform's consecutive
+// points fall on distinct banks. The multipliers' planes are cfs floats
+// apart and the outputs' fs float2, so that where a half-warp (a warp, for
+// the multipliers) holds several fields of one column, field q + 1 continues
+// field q's points on the banks.
+__host__ __device__ constexpr int k1_cf_stride(int g, int R, int tcp) {
+  return R * tcp + ((g * tcp - R * tcp) % 32 + 32) % 32;
+}
+__host__ __device__ constexpr int k1_out_stride(int g, int n, int tcp) {
+  return n * tcp + g * tcp % 16;
+}
+// bytes of the largest of the three phases a K1 block keeps in shared memory
+__host__ __device__ constexpr size_t k1_smem(int log2n, int R, int tc, int fb) {
+  const int n = 1 << log2n, g = n / 16, tcp = tc | 1;
+  const size_t staged = 8 * (size_t)R * tcp + 4 * (size_t)fb * k1_cf_stride(g, R, tcp);
+  const size_t rows = 8 * (size_t)tc * fb * (n + g);
+  const size_t out = 8 * (size_t)fb * k1_out_stride(g, n, tcp);
+  return staged > rows ? (staged > out ? staged : out) : (rows > out ? rows : out);
+}
+
+// K1: A[s, f, x, c] = (1/n) sum_p e^{2 pi i p x / n} Z[p] for c < m, the
+// inverse first-axis transform of column c of field f, where Z[p] =
+// i cf[f, r, c] w[s, r, c] at the slot p of kept row r and zero at the other
+// slots: rows r < R/2 sit at slots r, the rows from R/2 at n - R + r (the
+// Galerkin block's signed modes; the identity where R = n). A block takes
+// tc consecutive columns c0.. of sample s and fb fields f0.. (fb = 1 or 4):
+// tc fb transforms, transform i = col fb + fl, G threads each. Its shared
+// memory holds in turn (1) w's tile and the fields' multipliers, staged by
+// loads coalesced along c; (2) the transforms' exchange rows, NP float2 at
+// i NP; (3) the outputs, point-major, read back for stores along c.
+template <int LOG2N>
+__global__ void __launch_bounds__(K1_THREADS) inverse_fft_kernel(
+    const float2* __restrict__ w, const float* __restrict__ cf,
+    const float2* __restrict__ tw, float2* __restrict__ A, int R, int m, int tc,
+    int fb) {
+  using F = Fft<LOG2N>;
+  constexpr int N = F::N, G = F::G;
+  extern __shared__ float4 smem4[];
+  float2* const sm = reinterpret_cast<float2*>(smem4);
+  const int tcp = tc | 1, cfs = k1_cf_stride(G, R, tcp), fs = k1_out_stride(G, N, tcp);
+  const int tid = threadIdx.x;
+  const int t = tid % G, i = tid / G, col = i / fb, fl = i - col * fb;
+  const int f0 = blockIdx.x * fb, c0 = blockIdx.y * tc, s = blockIdx.z;
+  // the staging loops' rows: thread tid takes column cc of rows tid / tc + j fb G
+  const int cc = tid % tc, r0 = tid / tc, rstep = fb * G;
+  const bool live = cc < m - c0;
+
+  // (1) w[s, :, c0 : c0 + tc] and the multipliers cf[f0 : f0 + fb, :, c0 :
+  // c0 + tc], zeros past column m, all in flight at once by cp.async
+  float2* const ws = sm;                                     // [R][tcp]
+  float* const cs = reinterpret_cast<float*>(sm + R * tcp);  // [fb][cfs]
+  {
+    const float2* const wg = w + (size_t)s * R * m + c0 + cc;
+    const float* const cg = cf + (size_t)f0 * R * m + c0 + cc;
+    for (int r = r0; r < R; r += rstep) {
+      const int o = r * tcp + cc;
+      cp_async8(ws + o, live ? wg + (size_t)r * m : w, live);
+      for (int q = 0; q < fb; ++q)
+        cp_async4(cs + q * cfs + o, live ? cg + (size_t)(q * R + r) * m : cf, live);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // this thread's points p = t + G k of transform (col, fl): i cf w / n at
+  // the kept slots (1/n is a power of two, so the scaling is exact)
+  float2 v[1][16];
+  {
+    const int h = R / 2, gap = N - R;
+    const float2* const wc = ws + col;
+    const float* const ca = cs + fl * cfs + col;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int p = t + G * k;
+      v[0][k] = make_float2(0.f, 0.f);
+      if (p < h || p >= N - h) {
+        const int r = p < h ? p : p - gap;
+        const float2 z = wc[r * tcp];
+        const float a = ca[r * tcp] * (1.f / N);
+        v[0][k] = make_float2(-a * z.y, a * z.x);
+      }
+    }
+  }
+  float2* const bufs[1] = {sm + i * F::NP};
+  fft_passes<LOG2N, true, 1>(v, bufs, t, tw, true);
+
+  // (3) the outputs point-major, then A's rows, tc columns each
+  __syncthreads();  // every thread has read its points of the last pass
+  float2* const os = sm;  // [fb][fs]
+#pragma unroll
+  for (int k = 0; k < 16; ++k) os[fl * fs + (t + G * k) * tcp + col] = v[0][k];
+  __syncthreads();
+  if (!live) return;
+  // rows q N + x of fields f0 + q, fb N / rstep = 16 a thread
+  float2* const dst = A + (size_t)(s * 4 + f0) * N * m + c0 + cc;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int row = r0 + j * rstep;
+    dst[(size_t)row * m] = os[(row >> LOG2N) * fs + (row & (N - 1)) * tcp + cc];
   }
 }
 
@@ -433,7 +471,7 @@ __global__ void __launch_bounds__(K2_THREADS, 2) advect_fft_kernel(
 
 // K3: Z = F @ T, e = Z*filt + forcing, h = e + beta*h (h = e at stage 0),
 // w = (w + dtg*h + mu*lin*w) * dens, in place on h and w; FT = F^T (n x R).
-__global__ void __launch_bounds__(K13_THREADS) forward_first_kernel(
+__global__ void __launch_bounds__(K3_THREADS) forward_first_kernel(
     const float2* __restrict__ T, const float2* __restrict__ FT,
     const float* __restrict__ filt, const float2* __restrict__ frc,
     const float* __restrict__ lin, const float* __restrict__ dens,
@@ -447,12 +485,12 @@ __global__ void __launch_bounds__(K13_THREADS) forward_first_kernel(
   const int c0 = blockIdx.x * K3_BN, r0 = blockIdx.y * K3_BM, s = blockIdx.z;
   const float2* ts = T + (size_t)s * n * m;
   auto load = [&](int buf, int k0) {
-    for (int i = tid; i < K3_KC * K3_BM; i += K13_THREADS) {
+    for (int i = tid; i < K3_KC * K3_BM; i += K3_THREADS) {
       const int ki = i / K3_BM, ri = i % K3_BM, k = k0 + ki, r = r0 + ri;
       const bool ok = k < n && r < R;
       cp_async8(Fs + (buf * K3_KC + ki) * K3_BM + ri, ok ? FT + (size_t)k * R + r : FT, ok);
     }
-    for (int i = tid; i < K3_KC * K3_BN; i += K13_THREADS) {
+    for (int i = tid; i < K3_KC * K3_BN; i += K3_THREADS) {
       const int ki = i / K3_BN, ci = i % K3_BN, k = k0 + ki, c = c0 + ci;
       const bool ok = k < n && c < m;
       cp_async8(Ts + (buf * K3_KC + ki) * K3_BN + ci, ok ? ts + (size_t)k * m + c : ts, ok);
@@ -526,6 +564,25 @@ int set_smem(const void* kernel, size_t bytes) {
 }
 
 template <int LOG2N>
+int launch_inverse(const void* w, const void* cf, const void* tw, void* A, int b, int R,
+                   int m, int tc, int fb, int threads, cudaStream_t stream) {
+  // the host picks the blocks (inverse_layout), the shared memory follows from
+  // them; refuse a layout the kernel cannot take or a block cannot hold
+  using F = Fft<LOG2N>;
+  if ((fb != 1 && fb != 4) || tc < 1 || threads != tc * fb * F::G || threads > K1_THREADS ||
+      R < 2 || R % 2 || R > F::N || m < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k1_smem(LOG2N, R, tc, fb);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int e = set_smem((const void*)inverse_fft_kernel<LOG2N>, smem);
+  if (e != 0) return e;
+  const dim3 grid(4 / fb, (m + tc - 1) / tc, b);
+  inverse_fft_kernel<LOG2N><<<grid, threads, smem, stream>>>(
+      (const float2*)w, (const float*)cf, (const float2*)tw, (float2*)A, R, m, tc, fb);
+  return (int)cudaGetLastError();
+}
+
+template <int LOG2N>
 int launch_advect(const void* A, const void* tw, void* T, int rows, int m, int threads,
                   int smem, cudaStream_t stream) {
   // the host sizes the layout (advect_layout); refuse one the kernel cannot take
@@ -545,17 +602,23 @@ int launch_advect(const void* A, const void* tw, void* T, int rows, int m, int t
 
 extern "C" {
 
-int spectral_inverse_first(const void* w, const void* GT, const void* cf4,
-                           void* A, int b, int R, int m, int n,
+// K1 at n = 2^log2n, 16 <= n <= 2048; the columns and fields a block and
+// the threads come from the host (spectral_step.py::inverse_layout).
+int spectral_inverse_first(const void* w, const void* cf, const void* tw, void* A, int b,
+                           int R, int m, int log2n, int tc, int fb, int threads,
                            void* stream) {
-  const size_t smem = 2 * K1_KC * ((K1_BM + K1_BN) * sizeof(float2) + K1_BN * sizeof(float4));
-  const int e = set_smem((const void*)inverse_first_kernel, smem);
-  if (e != 0) return e;
-  const dim3 grid((m + K1_BN - 1) / K1_BN, (n + K1_BM - 1) / K1_BM, b);
-  inverse_first_kernel<<<grid, K13_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)w, (const float2*)GT, (const float4*)cf4, (float2*)A, R, m,
-      n);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (log2n) {
+    case 4: return launch_inverse<4>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 5: return launch_inverse<5>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 6: return launch_inverse<6>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 7: return launch_inverse<7>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 8: return launch_inverse<8>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 9: return launch_inverse<9>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 10: return launch_inverse<10>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    case 11: return launch_inverse<11>(w, cf, tw, A, b, R, m, tc, fb, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K2 at n = 2^log2n, 16 <= n <= 2048; the threads a block and the shared
@@ -586,7 +649,7 @@ int spectral_forward_first(const void* T, const void* FT, const void* filt,
   const int e = set_smem((const void*)forward_first_kernel, smem);
   if (e != 0) return e;
   const dim3 grid((m + K3_BN - 1) / K3_BN, (R + K3_BM - 1) / K3_BM, b);
-  forward_first_kernel<<<grid, K13_THREADS, smem, (cudaStream_t)stream>>>(
+  forward_first_kernel<<<grid, K3_THREADS, smem, (cudaStream_t)stream>>>(
       (const float2*)T, (const float2*)FT, (const float*)filt,
       (const float2*)frc, (const float*)lin, (const float*)dens, (float2*)h,
       (float2*)w, R, m, n, first, beta, dtg, mu);

@@ -8,7 +8,8 @@ a brick-wall mask per stage. Both compute ``steps`` Carpenter-Kennedy steps
 of five stages; each stage is three hand-written kernels in
 ``csrc/spectral_step.cu`` (see its header for the design and the bound):
 
-- ``inverse_first``: multipliers fused into the first-axis inverse DFT;
+- ``inverse_first``: multipliers fused into the first-axis inverse
+  transforms, per tile of columns, as radix FFTs in shared memory;
 - ``advect``: inverse last axis, advection product, forward last axis, per
   tile of whole physical rows, as radix FFTs in shared memory;
 - ``forward_first``: forward first axis with the Crank-Nicolson update.
@@ -20,14 +21,14 @@ kernel or raises. Each wrapper counts its launches in ``LAUNCHES``.
 ``_fused_rollout_plain`` is the whole rollout in plain PyTorch.
 
 On the card every precision mode computes in fp32 FFMA, at least the
-accuracy ``"highest"`` asks for: K1 and K3 are register-tiled products on
-the CUDA cores, their operands staged in shared memory by cp.async, and K2
-runs Stockham passes in registers and shared memory (the ``.cu`` header
-gives the design). ``constants`` lays the operands out for them (``GT``,
-``FT``, ``cf4`` and K2's twiddle table ``tw``) beside the plain versions'
-matrices; ``advect_layout`` picks K2's rows a block from the shape and
-refuses an n the kernel does not take. The rollout is forward-only: taking
-a gradient through it raises, as in the JAX package.
+accuracy ``"highest"`` asks for: K1 and K2 run Stockham passes in registers
+and shared memory, K3 is a register-tiled product on the CUDA cores, its
+operands staged in shared memory by cp.async (the ``.cu`` header gives the
+design). ``constants`` lays the operands out for them (``FT`` and the FFTs'
+twiddle table ``tw``) beside the plain versions' matrices;
+``inverse_layout`` and ``advect_layout`` pick K1's and K2's blocks from the
+shape and refuse an n the kernels do not take. The rollout is forward-only:
+taking a gradient through it raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ _GAMMAS = (0.1496590219993, 0.3792103129999, 0.8229550293869,
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"inverse_first": 0, "advect": 0, "forward_first": 0}
 
-# the grid sizes K2 (csrc/spectral_step.cu advect_fft_kernel) takes
+# the grid sizes K1 and K2 (csrc/spectral_step.cu inverse_fft_kernel,
+# advect_fft_kernel) take
 _K2_MIN_N, _K2_MAX_N = 16, 2048
 
 
@@ -135,12 +137,11 @@ def _constants(layout: str, n: int, step, viscosity, drag, dt, device: str):
     # u = i(-tky·ilap)ŵ, v = i(tkx·ilap)ŵ, ∂ω/∂x = i·tkx·ŵ, ∂ω/∂y = i·tky·ŵ
     cf = np.stack([-tky * ilap, tkx * ilap, tkx, tky])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    # the kernels' operand layouts: G and F transposed, the four fields'
-    # multipliers of a mode side by side, K2's twiddles (where it takes n)
+    # the kernels' operand layouts: F transposed, the FFTs' twiddles (where
+    # the kernels take n); K1 reads the multipliers ``cf`` as they are
     return {
         "n": n, "R": G.shape[1], "m": m,
-        "G": t(G), "F": t(F), "cf": t(cf),
-        "GT": t(G.T), "FT": t(F.T), "cf4": t(np.moveaxis(cf, 0, -1)),
+        "G": t(G), "F": t(F), "cf": t(cf), "FT": t(F.T),
         "tw": t(_twiddles(n)) if advect_takes(n) else None,
         "il_re": t(M["inv_last_re"]), "il_im": t(M["inv_last_im"]),
         "fl": t(_cplx(M["fwd_last_re"], M["fwd_last_im"])),
@@ -181,7 +182,7 @@ def _lib():
 
     lib = _build.load("spectral_step")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.spectral_inverse_first.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.spectral_inverse_first.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.spectral_advect.argtypes = [P] * 3 + [I] * 5 + [P]
     lib.spectral_forward_first.argtypes = (
         [P] * 8 + [I, I, I, I, I, F, F, F, P])
@@ -220,15 +221,38 @@ def _out(out, shape, like: Tensor) -> Tensor:
     return torch.empty(shape, dtype=torch.complex64, device=like.device)
 
 
+# each kernel's ctypes arguments, for outputs and a stream already chosen
+
+def _k1_args(w: Tensor, c: dict, A: Tensor, stream: int) -> tuple:
+    b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
+    tc, fb, threads = inverse_layout(n, R)
+    return (w.data_ptr(), c["cf"].data_ptr(), c["tw"].data_ptr(), A.data_ptr(), b, R, m,
+            n.bit_length() - 1, tc, fb, threads, stream)
+
+
+def _k2_args(A: Tensor, c: dict, T: Tensor, stream: int) -> tuple:
+    b, n, m = A.shape[0], c["n"], c["m"]
+    _, threads, nbytes = advect_layout(n)
+    return (A.data_ptr(), c["tw"].data_ptr(), T.data_ptr(), b, n.bit_length() - 1, m,
+            threads, nbytes, stream)
+
+
+def _k3_args(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int, stream: int) -> tuple:
+    b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
+    return (T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
+            c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
+            h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
+            c["dt_gammas"][k], c["mus"][k], stream)
+
+
 def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
     b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
     _check(w, (b, R, m), c["G"].device, "state")
     A = _out(out, (b, 4, n, m), w)
     lib = _lib()  # built at first use, before the device is made current
     with torch.cuda.device(w.device):
-        _ok(lib.spectral_inverse_first(
-            w.data_ptr(), c["GT"].data_ptr(), c["cf4"].data_ptr(), A.data_ptr(),
-            b, R, m, n, _stream(w.device)), "spectral_inverse_first")
+        _ok(lib.spectral_inverse_first(*_k1_args(w, c, A, _stream(w.device))),
+            "spectral_inverse_first")
     LAUNCHES["inverse_first"] += 1
     return A
 
@@ -236,31 +260,28 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
 def _launch_advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
     b, n, m = A.shape[0], c["n"], c["m"]
     _check(A, (b, 4, n, m), c["G"].device, "first-axis output")
-    _, threads, nbytes = advect_layout(n)
     T = _out(out, (b, n, m), A)
     lib = _lib()  # built at first use, before the device is made current
     with torch.cuda.device(A.device):
-        _ok(lib.spectral_advect(
-            A.data_ptr(), c["tw"].data_ptr(), T.data_ptr(), b, n.bit_length() - 1, m,
-            threads, nbytes, _stream(A.device)), "spectral_advect")
+        _ok(lib.spectral_advect(*_k2_args(A, c, T, _stream(A.device))), "spectral_advect")
     LAUNCHES["advect"] += 1
     return T
 
 
-def _launch_forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
+def _check_stage(T: Tensor, w: Tensor, h: Tensor, c: dict) -> None:
     b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
     dev = c["G"].device
     _check(T, (b, n, m), dev, "advection spectrum")
     _check(w, (b, R, m), dev, "state")
     _check(h, (b, R, m), dev, "stage memory")
     _check(c["forcing"], (R, m), dev, "forcing")
+
+
+def _launch_forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
+    _check_stage(T, w, h, c)
     lib = _lib()  # built at first use, before the device is made current
     with torch.cuda.device(w.device):
-        _ok(lib.spectral_forward_first(
-            T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
-            c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
-            h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
-            c["dt_gammas"][k], c["mus"][k], _stream(w.device)),
+        _ok(lib.spectral_forward_first(*_k3_args(T, w, h, c, k, _stream(w.device))),
             "spectral_forward_first")
     LAUNCHES["forward_first"] += 1
     return w, h
@@ -292,24 +313,48 @@ def forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
 
 # --------------------------------------------------------------- rollout ----
 
-def _rollout(w: Tensor, c: dict, steps: int, block_cols: int, phases) -> Tensor:
-    inv, adv, fwd = phases
+def _rollout_cuda(w: Tensor, c: dict, steps: int) -> Tensor:
+    """The rollout on the card. The state, the stage memory, A, T and the
+    stream stay the same through it, so each launch's arguments are built
+    once and the loop only launches and counts: at 256², b=32 a step's 15
+    launches take the card about 0.46 ms, and on the host of an NVIDIA H100
+    machine a launch through its wrapper (checks, lookups, the device and
+    stream) took ~22 µs, one here under 6."""
+    b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
     w = w.clone(memory_format=torch.contiguous_format)
     h = torch.zeros_like(w)
-    A = T = None
-    for _ in range(steps):
-        for k in range(5):
-            A = inv(w, c, A)
-            T = adv(A, c, block_cols, T)
-            w, h = fwd(T, w, h, c, k)
+    A = torch.empty((b, 4, n, m), dtype=torch.complex64, device=w.device)
+    T = torch.empty((b, n, m), dtype=torch.complex64, device=w.device)
+    _check_stage(T, w, h, c)
+    lib = _lib()  # built at first use, before the device is made current
+    with torch.cuda.device(w.device):
+        s = _stream(w.device)
+        k1 = ("inverse_first", lib.spectral_inverse_first, _k1_args(w, c, A, s))
+        k2 = ("advect", lib.spectral_advect, _k2_args(A, c, T, s))
+        stages = [(k1, k2, ("forward_first", lib.spectral_forward_first,
+                            _k3_args(T, w, h, c, k, s))) for k in range(5)]
+        for _ in range(steps):
+            for stage in stages:
+                for key, fn, args in stage:
+                    err = fn(*args)
+                    if err:
+                        _ok(err, fn.__name__)
+                    LAUNCHES[key] += 1
     return w
 
 
 def _fused_rollout_plain(w: Tensor, c: dict, steps: int,
                          block_cols: Optional[int] = None) -> Tensor:
     """The whole rollout in plain PyTorch, on any device."""
-    return _rollout(w, c, steps, block_cols,
-                    (_inverse_first_plain, _advect_plain, _forward_first_plain))
+    w = w.clone(memory_format=torch.contiguous_format)
+    h = torch.zeros_like(w)
+    A = T = None
+    for _ in range(steps):
+        for k in range(5):
+            A = _inverse_first_plain(w, c, A)
+            T = _advect_plain(A, c, block_cols, T)
+            w, h = _forward_first_plain(T, w, h, c, k)
+    return w
 
 
 class _ForwardOnly(torch.autograd.Function):
@@ -356,6 +401,33 @@ def _k2_row_floats(n: int) -> int:
     n/16 modulo 16, so that the rows sharing a half-warp meet no bank twice."""
     g, np_ = n // 16, n + n // 16
     return 2 * np_ if g >= 16 else 2 * np_ + (g - 2 * np_) % 16
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_layout(n: int, R: int):
+    """K1's blocks for an ``(R, m)`` spectrum on an n² grid, as ``(columns a
+    block, fields a block, threads)``; raises ``ValueError`` for an n it does
+    not take (``advect_takes``). The kernel sizes its shared memory from
+    these (``k1_smem`` in ``csrc/spectral_step.cu``).
+
+    n/16 threads hold a column's transform. A block takes 8 consecutive
+    columns (4 from 1024²) of one sample, with all four fields up to 128²
+    and one field from 256² up. Of 1 to 32 columns and 1 or 4 fields, by
+    device time on an NVIDIA H100 80GB HBM3 (700 W) at n from 16 to 2048 and
+    batches 1 to 128, that is the fastest at 256², b=32 and b=128, within
+    6 % of it from 256² up on the Galerkin block and within 12 % elsewhere
+    (the aligned layout at 256², which no default route takes, runs up to
+    11 % faster with four fields). At 256², b=32 its 1,408 blocks of 128
+    threads run in 1.33 waves of 1,056 (8 an SM at 60 registers a thread);
+    no layout does better, as the 176,128 threads that hold the batch's
+    transforms are 1.30 times what the SMs hold at once.
+    """
+    if not advect_takes(n):
+        raise ValueError(
+            f"the first-axis kernel takes n a power of two from {_K2_MIN_N} to "
+            f"{_K2_MAX_N}, got n={n}; use fft_impl='fft' or another unfused route")
+    tc, fb = (8 if n <= 512 else 4), (4 if n <= 128 else 1)
+    return tc, fb, tc * fb * (n // 16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,9 +506,8 @@ def _fused_rollout(w_hat: Tensor, *, layout: str, grid, viscosity, drag, dt,
     if w.device.type == "cpu":
         run = lambda x: _fused_rollout_plain(x, c, steps, jc)  # noqa: E731
     elif w.device.type == "cuda":
-        advect_layout(c["n"])  # raises where K2 does not take n
-        run = lambda x: _rollout(  # noqa: E731
-            x, c, steps, jc, (inverse_first, advect, forward_first))
+        advect_layout(c["n"])  # raises where the kernels do not take n
+        run = lambda x: _rollout_cuda(x, c, steps)  # noqa: E731
     else:
         raise ValueError(f"no fused rollout for device {w.device}")
     out = _ForwardOnly.apply(w, run) if w.requires_grad else run(w)
@@ -477,9 +548,10 @@ def fused_rollout_aligned(
 
 def flops_per_sample_step(layout: str, n: int) -> int:
     """Flops of one sample-step as the JAX kernel counts them: 5 stages of 4
-    inverse + 1 forward 2-D DFT, each axis a dense product. The card's K2
-    no longer does that work: its last-axis transforms are FFTs (the
-    ``.cu`` header counts them), so this over-counts the card's work."""
+    inverse + 1 forward 2-D DFT, each axis a dense product. Of the card's
+    kernels only K3 still does that work: K1's first-axis and K2's
+    last-axis transforms are FFTs (the ``.cu`` header counts them), so this
+    over-counts the card's work."""
     if layout == "galerkin":
         rows, m = dft2d.galerkin_block(n)
         R = len(rows)

@@ -166,28 +166,32 @@ class RK4CrankNicolsonStepper(IMEXStepper):
 # ms a step of the RK4-CN rollout by route, measured on an NVIDIA H100 80GB
 # HBM3 at a 700 W power limit (``python3 -m tpu_cfd_torch.ops.cuda.route_times
 # --sweep solver``: viscosity 1e-3, medians of three rounds of CUDA events;
-# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES. The two fused
-# columns come from a sweep taken after the advection kernel became radix
-# FFTs in shared memory, the ``fft`` and ``dft_galerkin`` columns from the
-# sweep before it: that change does not touch them.
+# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES. Every column
+# is the mean of two sweeps in one call, taken after both FFT kernels of the
+# fused rollout (its first-axis inverse and its advection) were radix FFTs in
+# shared memory and the rollout launched from arguments built once.
 _ROUTES = ("dft_galerkin_fused", "dft_aligned_fused", "fft", "dft_galerkin")
 _H100_MS_PER_STEP = {
-    (64, 8): (0.2934, 0.3531, 2.4950, 6.9519),
-    (64, 32): (0.2764, 0.3474, 2.3802, 4.8411),
-    (64, 128): (0.2773, 0.3913, 2.2286, 4.2549),
-    (128, 8): (0.2687, 0.2948, 2.6101, 3.6656),
-    (128, 32): (0.2680, 0.3024, 2.5907, 4.1933),
-    (128, 128): (0.8050, 0.9728, 2.8015, 6.5349),
-    (256, 8): (0.3837, 0.4770, 1.7507, 4.6547),
-    (256, 32): (0.9744, 1.6238, 2.2515, 4.4561),
-    (256, 128): (3.4258, 6.1468, 5.9167, 10.4179),
-    (512, 8): (1.8111, 3.0693, 3.3897, 5.7679),
-    (512, 32): (6.4703, 11.8722, 5.9492, 14.5208),
-    (512, 128): (24.7084, 45.9548, 21.4569, 49.6301),
-    (1024, 8): (11.3230, 23.4707, 6.0034, 20.1682),
-    (1024, 32): (43.6181, 91.6701, 21.5080, 74.7591),
-    (1024, 128): (172.1848, 360.7266, 83.1835, 289.6081),
+    (64, 8): (0.1234, 0.1244, 2.7135, 4.7872),
+    (64, 32): (0.1162, 0.1260, 2.8110, 5.2214),
+    (64, 128): (0.1537, 0.1660, 2.7227, 5.7470),
+    (128, 8): (0.1587, 0.1532, 2.5457, 4.5412),
+    (128, 32): (0.1826, 0.1847, 2.7199, 5.3113),
+    (128, 128): (0.4786, 0.5346, 2.7292, 5.4222),
+    (256, 8): (0.2049, 0.2127, 2.6817, 5.8944),
+    (256, 32): (0.4602, 0.6067, 2.5832, 5.2425),
+    (256, 128): (1.3495, 2.1199, 5.9591, 10.4382),
+    (512, 8): (0.7372, 0.9511, 2.9006, 5.1959),
+    (512, 32): (2.1895, 3.4496, 6.0473, 14.1980),
+    (512, 128): (8.1699, 13.1848, 21.6521, 50.0643),
+    (1024, 8): (3.5216, 6.2131, 6.0932, 20.4294),
+    (1024, 32): (12.8546, 23.8215, 21.6663, 74.6327),
+    (1024, 128): (50.8372, 93.6214, 83.2515, 289.5397),
 }
+# The two sweeps behind the table moved a point's fused times by up to 4 %
+# against each other, so a route takes the default from the Galerkin block's
+# kernel only where it is faster by more than 5 %.
+_ROUTE_MARGIN = 1.05
 
 
 def _measured_ms(grid_size: int, batch_size: int) -> dict:
@@ -213,16 +217,16 @@ def recommended_fft_impl(
     (``_H100_MS_PER_STEP``).
 
     fp32 dealiased runs take the hand-written fused RK4-CN kernel on the
-    Galerkin block (``dft_galerkin_fused``) from 64² to 256² at every
-    measured batch and at 512², b=8 (256², b=32: 0.9744 ms a step against
-    2.2515 for ``torch.fft``). ``torch.fft`` (``fft``) wins at 512² from
-    b=32 up and at 1024² (1024², b=32: 21.508 against 43.618 for the kernel,
-    whose dense first-axis DFTs grow as n³). Since the advection kernel
-    became radix FFTs, four points changed route: 256², b=128 and 512², b=8
-    went from ``fft`` to the kernel (3.4258 against 5.9167; 1.8111 against
-    3.3897), and 64², b=32 and b=128 from the aligned layout
-    (``dft_aligned_fused``) to the Galerkin block (0.2764 against 0.3474;
-    0.2773 against 0.3913), so the aligned layout is the default nowhere.
+    Galerkin block (``dft_galerkin_fused``) at every measured point (256²,
+    b=32: 0.4602 ms a step against 2.5832 for ``torch.fft``). Another route
+    takes over only where it is faster by more than ``_ROUTE_MARGIN``, more
+    than the sweeps moved: the aligned layout (``dft_aligned_fused``) read
+    0.1532 against the block's 0.1587 at 128², b=8, 3.5 % and within it, so
+    the block keeps that point. Since the first-axis kernel became radix
+    FFTs, five points changed route: 512² from b=32 up and 1024² at every
+    batch went from ``fft`` to the kernel (1024², b=32: 12.8546 against
+    21.6663, where the kernel's one dense product, the forward first axis,
+    grows as n³).
     fp64 runs and runs without dealiasing take ``fft``: the kernel is
     fp32-only and steps on the 2/3-rule block. An n the kernel does not
     take (not a power of two from 16 to 2048) takes
@@ -235,7 +239,10 @@ def recommended_fft_impl(
     if not spectral_step.advect_takes(grid_size):
         return recommended_unfused_impl(grid_size, batch_size, double, dealias)
     ms = _measured_ms(grid_size, batch_size)
-    return min(ms, key=ms.get)
+    best = min(ms, key=ms.get)
+    if ms["dft_galerkin_fused"] <= ms[best] * _ROUTE_MARGIN:
+        return "dft_galerkin_fused"
+    return best
 
 
 def recommended_unfused_impl(
@@ -250,8 +257,8 @@ def recommended_unfused_impl(
 
     That is ``torch.fft`` at every measured point on the NVIDIA H100 80GB
     HBM3 (700 W): the ``torch.matmul`` Galerkin path (``dft_galerkin``, the
-    TPU's choice) took 4.4561 ms a step at 256², b=32, against 2.2515, and
-    6.9519 against 2.4950 at 64², b=8.
+    TPU's choice) took 5.2425 ms a step at 256², b=32, against 2.5832, and
+    4.7872 against 2.7135 at 64², b=8.
     """
     if double or not dealias:
         return "fft"
