@@ -918,13 +918,12 @@ def main() -> int:
                 w = ns._align(what4)
                 f_hat = ns._forcing_term() if forced else None
                 c = ss.constants(layout, grid, ns.viscosity, ns.drag, DT, dev, f_hat)
-                jc = ss.resolve_block_cols("auto", N, c["m"])
                 got = ss._fused_rollout(
                     w, layout=layout, grid=grid, viscosity=ns.viscosity,
                     drag=ns.drag, dt=DT, steps=10, forcing_hat=f_hat,
                     precision=prec, block_cols="auto")
                 torch.cuda.synchronize()
-                want = ss._fused_rollout_plain(w, c, 10, jc)
+                want = ss._fused_rollout_plain(w, c, 10)
                 torch.cuda.synchronize()
                 err = rel(got, want)
                 print(f"rollout {layout} forced={forced} precision={prec}: "
@@ -1520,11 +1519,10 @@ def main() -> int:
         wb = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl=f"dft_{layout}",
                                     device=dev)._align(what).contiguous()
         cb = ss.constants(layout, grid, 1e-3, 0.0, DT, dev)
-        jcb = ss.resolve_block_cols("auto", N, cb["m"])
         row = {"layout": layout, "n": N, "batch": b, "steps": rsteps}
         row["ms_per_step"] = spread[f"rollout {layout} b{b}"]["median"]
         row["plain_ms_per_step"] = cuda_ms(
-            lambda: ss._fused_rollout_plain(wb, cb, rsteps, jcb), 1) / rsteps
+            lambda: ss._fused_rollout_plain(wb, cb, rsteps), 1) / rsteps
         ns = NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl=f"dft_{layout}",
                                     device=dev)
         row["library_ms_per_step"] = {
@@ -1864,7 +1862,7 @@ def main() -> int:
         drag=kol_ns.drag, dt=DT, steps=10, forcing_hat=kf_hat,
         precision=kol_ns.mxu_precision, block_cols="auto")
     torch.cuda.synchronize()
-    want = ss._fused_rollout_plain(kw_hat, kc, 10, ss.resolve_block_cols("auto", N, kc["m"]))
+    want = ss._fused_rollout_plain(kw_hat, kc, 10)
     torch.cuda.synchronize()
     kol_err = rel(got, want)
     print(f"main path 5: fused Galerkin rollout b{kbatch}, viscosity 1e-3, drag 0.1, "
@@ -2131,7 +2129,7 @@ def main() -> int:
         drag=demo_ns.drag, dt=g_dt, steps=10, forcing_hat=None,
         precision=demo_ns.mxu_precision, block_cols="auto")
     torch.cuda.synchronize()
-    want_r = ss._fused_rollout_plain(dw_hat, dc, 10, ss.resolve_block_cols("auto", dsz, dc["m"]))
+    want_r = ss._fused_rollout_plain(dw_hat, dc, 10)
     torch.cuda.synchronize()
     demo_err = {"rollout_rel_l2": rel(got, want_r)}
     print(f"main path 8: fused Galerkin rollout {dsz}^2 b{db}, viscosity "

@@ -144,7 +144,7 @@ def test_inverse_route_matches_plain(dev, n, m, b, planes, fused):
     assert _rel_err(sc.inverse(h, 1.0, c), sc._inverse_plain(h, 1.0, c)) < 1e-5
 
 
-# the dry run's 16^2, 64^2 (the route table's smallest size), 128^2 at the
+# the dry run's 16^2, 64^2 (the solver sweep's smallest size), 128^2 at the
 # fine-tune demo's b=4, 256^2 (at an odd batch too, a partial wave of K1's
 # blocks), 512^2, 1024^2 and 2048^2, both layouts: K1 and K2 at each radix of
 # their last pass (16, 2, 4, 8, 16, 2, 4, 8) and at one to three passes

@@ -132,10 +132,11 @@ def test_cli_writes_loadable_dataset_and_resumes(tmp_path):
 
 def test_integrator_without_the_kernel_takes_the_fastest_unfused_route(tmp_path):
     """Where the fused kernel cannot run the integrator (the fno dataset's
-    IMEX order 2), the default is the fastest route without it in the H100
-    table: torch.fft at every measured point, not the TPU's dft_galerkin."""
-    for n, b in teq._H100_MS_PER_STEP:
-        assert tgen.default_fft_impl(n, b, False, True, fused_ok=False) == "fft"
+    IMEX order 2), the default is the fastest route without it on the card:
+    torch.fft, not the TPU's dft_galerkin, at every size and batch."""
+    for n in (16, 64, 96, 256, 1024, 4096):
+        for b in (1, 8, 32, 128, 256):
+            assert tgen.default_fft_impl(n, b, False, True, fused_ok=False) == "fft"
     assert tgen.default_fft_impl(256, 32, False, True, fused_ok=True) == "dft_galerkin_fused"
     assert tgen.default_fft_impl(256, 32, True, True, fused_ok=True) == "fft"
     # through the CLI's generation loop with an IMEX order-2 solver
@@ -155,6 +156,46 @@ def test_integrator_without_the_kernel_takes_the_fastest_unfused_route(tmp_path)
     with open(path + ".meta.json") as f:
         assert json.load(f)["fft_impl"] == "fft"
     assert np.isfinite(jdatasets.load_trajectory_dict(path)["vorticity"]).all()
+
+
+_MAINS = {"fno": tgen.main_fno, "mcwilliams": tgen.main_mcwilliams}
+
+
+@pytest.mark.parametrize("example,extra,pin,runs_on", [
+    ("fno", (), "dft_galerkin_fused", "fft"),  # IMEX order 2
+    ("mcwilliams", ("--double",), "dft_galerkin_fused", "fft"),
+    ("mcwilliams", ("--no-dealias",), "dft_galerkin_fused", "fft"),
+    ("mcwilliams", (), "dft_galerkin", "dft_galerkin"),  # a pin the run can step
+])
+def test_resume_leaves_a_fused_pin_the_integrator_cannot_take(tmp_path, example, extra,
+                                                              pin, runs_on):
+    """A resumed run whose sidecar pins the fused kernel, where the kernel
+    cannot step the run (IMEX order 2, fp64, no dealiasing), continues on
+    torch.fft and repins the sidecar with the mix recorded; a pin the run can
+    step is adopted."""
+    main = _MAINS[example]
+    path = main(_cli(tmp_path, 2, *extra))
+    meta_path = path + ".meta.json"
+    with open(meta_path) as f:
+        meta = json.load(f)
+    with open(meta_path, "w") as f:
+        json.dump({**meta, "fft_impl": pin}, f)
+    assert main(_cli(tmp_path, 4, *extra)) == path
+    with open(meta_path) as f:
+        meta = json.load(f)
+    assert meta["fft_impl"] == runs_on
+    assert meta.get("mixed_fft_impls", []) == (
+        [] if pin == runs_on else sorted({pin, runs_on}))
+    data = jdatasets.load_trajectory_dict(path)
+    np.testing.assert_array_equal(data["random_states"], [0, 1, 2, 3])
+    assert np.isfinite(data["vorticity"]).all()
+
+
+@pytest.mark.parametrize("example,extra", [
+    ("fno", ()), ("mcwilliams", ("--double",)), ("mcwilliams", ("--no-dealias",))])
+def test_explicit_fused_impl_the_run_cannot_take_is_refused(tmp_path, example, extra):
+    with pytest.raises(ValueError, match="cannot step this run"):
+        _MAINS[example](_cli(tmp_path, 2, "--fft-impl", "dft_galerkin_fused", *extra))
 
 
 def test_cli_double_runs_fp64_fft(tmp_path):

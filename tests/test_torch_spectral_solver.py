@@ -214,9 +214,7 @@ class TestLayouts:
             teq.NavierStokes2DSpectral(viscosity=1e-3, grid=tg)
 
     def test_recommended_fft_impl(self):
-        # the H100 table: the fused kernel on the Galerkin block at every
-        # measured point; at 128², b=8 the aligned layout is faster by less
-        # than the route margin, so the block keeps it
+        # the fused kernel on the Galerkin block wherever it steps the run
         assert teq.recommended_fft_impl(256, 32) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(256, 8) == "dft_galerkin_fused"
         assert teq.recommended_fft_impl(64, 1) == "dft_galerkin_fused"
@@ -232,40 +230,74 @@ class TestLayouts:
         assert teq.recommended_fft_impl(256, 32, dealias=False) == "fft"
 
     def test_recommended_fft_impl_needs_a_size_the_kernel_takes(self):
-        # the fused rollout's advection kernel takes n a power of two from 16
-        # to 2048; elsewhere the default is the fastest route without it
+        # the fused rollout's kernels take n a power of two from 16 to 2048;
+        # elsewhere the default is torch.fft, at any batch
         for n, b in ((96, 32), (96, 8), (200, 8), (3000, 32), (4096, 1)):
-            assert not teq.recommended_fft_impl(n, b).endswith("_fused")
-            assert teq.recommended_fft_impl(n, b) == teq.recommended_unfused_impl(n, b)
+            assert teq.recommended_fft_impl(n, b) == "fft"
+            assert teq.recommended_fft_impl(2 ** (n.bit_length() - 1), b) == (
+                "dft_galerkin_fused" if n < 4096 else "fft")
 
-    @pytest.mark.parametrize("n,b", sorted(teq._H100_MS_PER_STEP))
-    def test_recommended_impls_are_the_measured_fastest(self, n, b):
-        ms = dict(zip(teq._ROUTES, teq._H100_MS_PER_STEP[(n, b)]))
-        best = teq.recommended_fft_impl(n, b)
-        # the fastest, or the Galerkin block's kernel within the margin of it
-        fastest = min(ms.values())
-        assert ms[best] == fastest or (best == "dft_galerkin_fused"
-                                       and ms[best] <= fastest * teq._ROUTE_MARGIN)
-        unfused = teq.recommended_unfused_impl(n, b)
-        assert not unfused.endswith("_fused")
-        assert all(ms[unfused] <= t for r, t in ms.items() if not r.endswith("_fused"))
-        # between measured points the nearer one (in log2) answers; an n
-        # between powers of two takes its fastest unfused route, as the fused
-        # rollout's advection kernel takes only powers of two
-        assert teq.recommended_fft_impl(n, int(b * 1.2) + 1) == best
-        assert teq.recommended_fft_impl(int(n * 1.2), int(b * 1.2) + 1) == (
-            unfused if best.endswith("_fused") else best)
+    # the (n, b) points of ``route_times.py --sweep solver``
+    @pytest.mark.parametrize("n,b", [(n, b) for n in (64, 128, 256, 512, 1024)
+                                     for b in (8, 32, 128)])
+    def test_route_rule_at_the_swept_points(self, n, b):
+        from tpu_cfd_torch.data import generate as tgen
 
-    @pytest.mark.parametrize("times,want", [
-        ((1.0, 0.96, 2.0, 3.0), "dft_galerkin_fused"),  # 4 % faster: within the margin
-        ((1.0, 0.94, 2.0, 3.0), "dft_aligned_fused"),   # 6 % faster: beyond it
-        ((1.0, 2.0, 0.96, 3.0), "dft_galerkin_fused"),
-        ((1.0, 2.0, 0.94, 3.0), "fft"),
-        ((1.0, 1.0, 2.0, 3.0), "dft_galerkin_fused"),   # a tie keeps the block
-    ])
-    def test_route_margin(self, monkeypatch, times, want):
-        monkeypatch.setattr(teq, "_H100_MS_PER_STEP", {(256, 32): times})
-        assert teq.recommended_fft_impl(256, 32) == want
+        assert teq.recommended_fft_impl(n, b) == "dft_galerkin_fused"
+        assert teq.recommended_fft_impl(n, b, double=True) == "fft"
+        assert teq.recommended_fft_impl(n, b, dealias=False) == "fft"
+        assert tgen.default_fft_impl(n, b, False, True, fused_ok=True) == "dft_galerkin_fused"
+        assert tgen.default_fft_impl(n, b, False, True, fused_ok=False) == "fft"
+
+    @pytest.mark.parametrize("n,want", [
+        (8, "fft"), (16, "dft_galerkin_fused"), (96, "fft"),
+        (2048, "dft_galerkin_fused"), (4096, "fft")])
+    def test_route_rule_at_the_kernel_size_edges(self, n, want):
+        for b in (1, 32, 4096):
+            assert teq.recommended_fft_impl(n, b) == want
+
+    def test_route_sweep_lists_the_slow_defaults(self):
+        # route_times.py --sweep solver lists the points where the rule's
+        # route is more than 5 % slower than the fastest, or was not timed,
+        # and those where fft is more than 5 % slower than the fastest route
+        # without the kernel
+        from tpu_cfd_torch.ops.cuda import route_times
+
+        def row(n, rec, **ms):
+            r = {"n": n, "b": 32, "recommended": rec,
+                 **{k: {"ms_per_step": t} for k, t in ms.items()}}
+            unfused = [k for k in ms if not k.endswith("_fused")]
+            return {**r, "fastest": min(ms, key=ms.get),
+                    "fastest_unfused": min(unfused, key=ms.get)}
+
+        rows = [row(64, "dft_galerkin_fused", dft_galerkin_fused=1.0,
+                    dft_aligned_fused=0.96, fft=1.3),          # 4 % slower: kept
+                row(128, "dft_galerkin_fused", dft_galerkin_fused=1.0, fft=0.94),
+                row(256, "fft", fft=1.0, dft_galerkin=2.0),
+                {**row(512, "dft_galerkin_fused", fft=1.0),
+                 "dft_galerkin_fused": {"out_of_memory": "CUDA out of memory"}},
+                row(1024, "dft_galerkin_fused", dft_galerkin_fused=1.0, fft=1.5,
+                    dft_galerkin=1.2)]
+        slow = route_times.slow_defaults(rows)
+        assert [(s["n"], s["default"], s["fastest"]) for s in slow] == [
+            (128, "dft_galerkin_fused", "fft"), (512, "dft_galerkin_fused", "fft"),
+            (1024, "fft", "dft_galerkin")]
+        assert slow[0]["ratio"] == pytest.approx(1 / 0.94) and slow[1]["ratio"] is None
+        assert slow[2]["ratio"] == pytest.approx(1.25)
+
+    def test_fused_refusal_names_the_first_broken_requirement(self):
+        f32 = torch.float32
+        assert teq.fused_refusal(None, f32, True) is None
+        assert teq.fused_refusal(teq.RK4CrankNicolsonStepper(), f32, True,
+                                 "dft_galerkin") is None
+        assert "RK4-CN" in teq.fused_refusal(teq.IMEXStepper(order=2), f32, True)
+        assert "RK4-CN" in teq.fused_refusal(
+            teq.RK4CrankNicolsonStepper(low_storage=False), f32, True)
+        # the checks run in the constructor's order: layout, smooth, dtype, stepper
+        assert "dft_aligned" in teq.fused_refusal(
+            teq.IMEXStepper(), torch.float64, False, "fft")
+        assert "smooth" in teq.fused_refusal(teq.IMEXStepper(), torch.float64, False)
+        assert "fp32" in teq.fused_refusal(teq.IMEXStepper(), torch.float64, True)
 
 
 class TestTrajectories:

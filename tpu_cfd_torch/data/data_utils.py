@@ -114,8 +114,10 @@ def get_args_ns2d(desc: str = "NSE 2D data generation") -> argparse.ArgumentPars
                             "dft_aligned_fused", "dft_galerkin_fused"],
                    help="solver transform implementation; the default is "
                         "dft_galerkin_fused (the hand-written CUDA RK4-CN "
-                        "rollout on the 2/3-rule block) and fft "
-                        "(torch.fft) for --double or --no-dealias runs")
+                        "rollout on the 2/3-rule block) where the kernel "
+                        "can step the run, else fft (torch.fft): --double, "
+                        "--no-dealias, another integrator or a grid size "
+                        "that is not a power of two from 16 to 2048")
     p.add_argument("--mxu-precision", type=str, default="high",
                    choices=["highest", "high", "default"],
                    help="precision of the dense-DFT paths, named as in the "

@@ -26,6 +26,7 @@ or plainly ``python -m tpu_cfd_torch.data.generate mcwilliams
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
@@ -146,15 +147,21 @@ def _repin_meta(
 
 def default_fft_impl(n: int, batch_size: int, double: bool, dealias: bool,
                      fused_ok: bool) -> str:
-    """The transform a run takes when ``--fft-impl`` is not given: the
-    fastest measured on the card (``equations.recommended_fft_impl``), and
-    where that is the fused kernel but the integrator is not the one it
-    implements, the fastest without it (``recommended_unfused_impl``)."""
-    impl = equations.recommended_fft_impl(n, batch_size, double=double, dealias=dealias)
-    if impl.endswith("_fused") and not fused_ok:
-        impl = equations.recommended_unfused_impl(n, batch_size, double=double,
-                                                  dealias=dealias)
-    return impl
+    """The transform a run takes when ``--fft-impl`` is not given:
+    ``equations.recommended_fft_impl``'s where the fused kernel can step the
+    run's integrator (``fused_ok``), else ``torch.fft``, the fastest route
+    without the kernel on the card."""
+    if not fused_ok:
+        return "fft"
+    return equations.recommended_fft_impl(n, batch_size, double=double, dealias=dealias)
+
+
+def _impl_runs(impl: str, *, solver, dtype: torch.dtype, dealias: bool) -> bool:
+    """Whether the transform ``impl`` (a resumed run's pin) can step a solver
+    of this stepper (``None``: the default), dtype and dealiasing."""
+    if impl.endswith("_fused"):
+        return equations.fused_refusal(solver, dtype, dealias) is None
+    return dealias or impl != "dft_galerkin"
 
 
 def _resume_plan(args, data_filepath: str, meta_path: str, fft_impl: str,
@@ -284,30 +291,16 @@ def run_generation(
     grid = grids.Grid((n, n), domain=((0, diam), (0, diam)))
     fft_impl = getattr(args, "fft_impl", None)
     fft_impl_explicit = fft_impl is not None
-    fused_ok = solver is None or (
-        isinstance(solver, RK4CrankNicolsonStepper)
-        and solver.low_storage and solver.order == 4
-    )
+    refusal = equations.fused_refusal(solver, compute_dtype, not args.no_dealias)
     if fft_impl is None:
         fft_impl = default_fft_impl(n, args.batch_size, args.double,
-                                    not args.no_dealias, fused_ok)
-    elif fft_impl.endswith("_fused") and not fused_ok:
-        raise ValueError(
-            f"--fft-impl {fft_impl} is incompatible with this "
-            f"dataset's time integrator ({type(solver).__name__}); the "
-            "fused kernel implements the low-storage RK4-CN stepper only"
-        )
-
-    def _impl_compatible(impl: str) -> bool:
-        """Can ``impl`` run under this invocation's solver configuration?"""
-        if impl.endswith("_fused"):
-            return fused_ok and not args.double and not args.no_dealias
-        if impl == "dft_galerkin":
-            return not args.no_dealias
-        return True
-
+                                    not args.no_dealias, refusal is None)
+    elif fft_impl.endswith("_fused") and refusal:
+        raise ValueError(f"--fft-impl {fft_impl} cannot step this run: {refusal}")
+    impl_compatible = functools.partial(_impl_runs, solver=solver, dtype=compute_dtype,
+                                        dealias=not args.no_dealias)
     plan = (_resume_plan(args, data_filepath, meta_path, fft_impl, fft_impl_explicit,
-                         _impl_compatible, logger) if root else None)
+                         impl_compatible, logger) if root else None)
     if mesh is not None:
         box = [plan]
         dist.broadcast_object_list(box, src=0)
@@ -325,7 +318,7 @@ def run_generation(
         forcing_fn=forcing_fn,
         solver=solver or RK4CrankNicolsonStepper(),
         dtype=compute_dtype,
-        fft_impl=fft_impl[: -len("_fused")] if fused else fft_impl,
+        fft_impl=fft_impl.removesuffix("_fused"),
         mxu_precision=mxu_precision,
         fused=fused,
         device=device,

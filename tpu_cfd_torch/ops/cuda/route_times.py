@@ -19,8 +19,12 @@ Each sweep prints one JSON line with the card's name and power limit:
 - ``solver``: ms a step of the 256²-style solver at n ∈ {64, 128, 256, 512,
   1024} and b ∈ {8, 32, 128} on the routes ``dft_galerkin_fused``,
   ``dft_aligned_fused``, ``fft`` and ``dft_galerkin`` (``torch.matmul``).
-  ``recommended_fft_impl`` and ``recommended_unfused_impl``
-  (``solvers/equations.py``) encode its result.
+  It checks the rule of ``recommended_fft_impl`` (``solvers/equations.py``):
+  each row records the rule's route beside the fastest, and ``slow_defaults``
+  lists the points where the rule's route is more than 5 % slower than the
+  fastest, or ``fft`` (the rule's route where the kernel cannot step the
+  run) more than 5 % slower than the fastest route without the kernel. An
+  empty list after a kernel change leaves the rule standing.
 
 Every point is the median of three rounds of CUDA events after a warm-up. A
 point that runs out of device memory is recorded as such, not dropped.
@@ -45,6 +49,9 @@ CONV_CASES = {"recipe": (64, 10, 10, 5), "sweep": (4, 10, 20, 5),
 SOLVER_SIZES = (64, 128, 256, 512, 1024)
 SOLVER_BATCHES = (8, 32, 128)
 SOLVER_ROUTES = ("dft_galerkin_fused", "dft_aligned_fused", "fft", "dft_galerkin")
+# a default route slower than the fastest by more than this is listed: the
+# fused routes drift 1–4 % between sweeps at 64²–128², b=8
+_MARGIN = 1.05
 
 
 def card_line() -> str:
@@ -149,9 +156,27 @@ def convt_sweep(dev: torch.device) -> dict:
     return {"sweep": "convt", "what": "SpectralConvT forward + backward, ms", "rows": rows}
 
 
+def slow_defaults(rows: list) -> list:
+    """The solver rows where a default route is more than ``_MARGIN`` times
+    the fastest route it competes with, or was not timed: ``recommended``
+    against every route, and ``fft`` against the routes without the kernel."""
+    slow = []
+    for row in rows:
+        for default, fastest in dict.fromkeys(((row["recommended"], row["fastest"]),
+                                               ("fft", row["fastest_unfused"]))):
+            best = row[fastest]["ms_per_step"]
+            got = row[default].get("ms_per_step")
+            if got is None or got > best * _MARGIN:
+                slow.append({"n": row["n"], "b": row["b"], "default": default,
+                             "fastest": fastest,
+                             "ratio": None if got is None else got / best})
+    return slow
+
+
 def solver_sweep(dev: torch.device, sizes=SOLVER_SIZES, batches=SOLVER_BATCHES) -> dict:
     from tpu_cfd_torch import grids
-    from tpu_cfd_torch.solvers.equations import NavierStokes2DSpectral
+    from tpu_cfd_torch.solvers.equations import (NavierStokes2DSpectral,
+                                                 recommended_fft_impl)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     dt = 1e-4  # small enough to stay finite at 1024² on every route
@@ -185,6 +210,7 @@ def solver_sweep(dev: torch.device, sizes=SOLVER_SIZES, batches=SOLVER_BATCHES) 
             timed = {r: row[r]["ms_per_step"] for r in SOLVER_ROUTES
                      if "ms_per_step" in row[r]}
             row["fastest"] = min(timed, key=timed.get)
+            row["recommended"] = recommended_fft_impl(n, b)
             row["fastest_unfused"] = min((r for r in timed if not r.endswith("_fused")),
                                          key=timed.get)
             print(f"solver n={n} b={b}: " + ", ".join(
@@ -194,7 +220,7 @@ def solver_sweep(dev: torch.device, sizes=SOLVER_SIZES, batches=SOLVER_BATCHES) 
             del what
             torch.cuda.empty_cache()
     return {"sweep": "solver", "what": "ms a step, RK4-CN, viscosity 1e-3",
-            "rows": rows}
+            "rows": rows, "slow_defaults": slow_defaults(rows)}
 
 
 def main(argv=None) -> int:

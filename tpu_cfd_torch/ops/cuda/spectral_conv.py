@@ -38,6 +38,8 @@ import math
 
 import torch
 
+from tpu_cfd_torch.ops.cuda import on_card
+
 Tensor = torch.Tensor
 
 # Kernel launches per wrapper since the last reset_launch_counts();
@@ -302,22 +304,18 @@ def _launch_inverse(g: Tensor, scale: float, c: dict) -> Tensor:
     return _launch_inverse_fused(g, scale, c, layout)
 
 
-def _dispatch(t: Tensor, plain, kernel):
-    if t.device.type == "cpu":
-        return plain
-    if t.device.type == "cuda":
-        return kernel
-    raise ValueError(f"no spectral-conv kernel for device {t.device}")
-
-
 def modes(v: Tensor, c: dict) -> Tensor:
     """Kernel ``dft2d_modes`` on CUDA tensors, its plain version on CPU tensors."""
-    return _dispatch(v, _modes_plain, _launch_modes)(v, c)
+    if on_card(v, "spectral-conv"):
+        return _launch_modes(v, c)
+    return _modes_plain(v, c)
 
 
 def inverse(g: Tensor, scale: float, c: dict) -> Tensor:
     """Kernel ``dft2d_inverse`` on CUDA tensors, its plain version on CPU tensors."""
-    return _dispatch(g, _inverse_plain, _launch_inverse)(g, scale, c)
+    if on_card(g, "spectral-conv"):
+        return _launch_inverse(g, scale, c)
+    return _inverse_plain(g, scale, c)
 
 
 def _dense(t: Tensor) -> Tensor:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from tpu_cfd_torch.ops import dft2d
+from tpu_cfd_torch.ops.cuda import on_card
 
 Tensor = torch.Tensor
 
@@ -152,12 +153,12 @@ def _constants(layout: str, n: int, step, viscosity, drag, dt, device: str):
 
 # ---------------------------------------------------------------- plain ----
 
-def _inverse_first_plain(w: Tensor, c: dict, out=None) -> Tensor:
+def _inverse_first_plain(w: Tensor, c: dict) -> Tensor:
     """(b, R, m) spectrum -> (b, 4, n, m) first-axis inverse DFTs of u, v, ∇ω."""
     return torch.matmul(c["G"], w.unsqueeze(1) * (1j * c["cf"]))
 
 
-def _advect_plain(A: Tensor, c: dict, block_cols=None, out=None) -> Tensor:
+def _advect_plain(A: Tensor, c: dict) -> Tensor:
     """(b, 4, n, m) -> (b, n, m) last-axis DFT of -(u ∂ω/∂x + v ∂ω/∂y)."""
     phys = torch.matmul(A.real, c["il_re"]) + torch.matmul(A.imag, c["il_im"])
     vx, vy, gx, gy = phys.unbind(1)
@@ -257,7 +258,7 @@ def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
     return A
 
 
-def _launch_advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
+def _launch_advect(A: Tensor, c: dict, out=None) -> Tensor:
     b, n, m = A.shape[0], c["n"], c["m"]
     _check(A, (b, 4, n, m), c["G"].device, "first-axis output")
     T = _out(out, (b, n, m), A)
@@ -287,28 +288,25 @@ def _launch_forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
     return w, h
 
 
-def _dispatch(t: Tensor, plain, kernel):
-    if t.device.type == "cpu":
-        return plain
-    if t.device.type == "cuda":
-        return kernel
-    raise ValueError(f"no spectral-step kernel for device {t.device}")
-
-
 def inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
     """Kernel K1 on CUDA tensors, its plain version on CPU tensors."""
-    return _dispatch(w, _inverse_first_plain, _launch_inverse_first)(w, c, out)
+    if on_card(w, "spectral-step"):
+        return _launch_inverse_first(w, c, out)
+    return _inverse_first_plain(w, c)
 
 
 def advect(A: Tensor, c: dict, block_cols: int, out=None) -> Tensor:
     """Kernel K2 on CUDA tensors, its plain version on CPU tensors; both
     take whole rows, whatever ``block_cols`` (the JAX signature's)."""
-    return _dispatch(A, _advect_plain, _launch_advect)(A, c, block_cols, out)
+    if on_card(A, "spectral-step"):
+        return _launch_advect(A, c, out)
+    return _advect_plain(A, c)
 
 
 def forward_first(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int):
     """Kernel K3 on CUDA tensors (in place on w, h), plain on CPU tensors."""
-    return _dispatch(T, _forward_first_plain, _launch_forward_first)(T, w, h, c, k)
+    run = _launch_forward_first if on_card(T, "spectral-step") else _forward_first_plain
+    return run(T, w, h, c, k)
 
 
 # --------------------------------------------------------------- rollout ----
@@ -343,16 +341,13 @@ def _rollout_cuda(w: Tensor, c: dict, steps: int) -> Tensor:
     return w
 
 
-def _fused_rollout_plain(w: Tensor, c: dict, steps: int,
-                         block_cols: Optional[int] = None) -> Tensor:
+def _fused_rollout_plain(w: Tensor, c: dict, steps: int) -> Tensor:
     """The whole rollout in plain PyTorch, on any device."""
     w = w.clone(memory_format=torch.contiguous_format)
     h = torch.zeros_like(w)
-    A = T = None
     for _ in range(steps):
         for k in range(5):
-            A = _inverse_first_plain(w, c, A)
-            T = _advect_plain(A, c, block_cols, T)
+            T = _advect_plain(_inverse_first_plain(w, c), c)
             w, h = _forward_first_plain(T, w, h, c, k)
     return w
 
@@ -500,11 +495,11 @@ def _fused_rollout(w_hat: Tensor, *, layout: str, grid, viscosity, drag, dt,
             f"expected {layout} spectrum (..., {c['R']}, {c['m']}), "
             f"got {tuple(w_hat.shape)}"
         )
-    jc = resolve_block_cols(block_cols, c["n"], c["m"])
+    resolve_block_cols(block_cols, c["n"], c["m"])  # raises on a bad value
     lead = w_hat.shape[:-2]
     w = w_hat.reshape((math.prod(lead), c["R"], c["m"]))
     if w.device.type == "cpu":
-        run = lambda x: _fused_rollout_plain(x, c, steps, jc)  # noqa: E731
+        run = lambda x: _fused_rollout_plain(x, c, steps)  # noqa: E731
     elif w.device.type == "cuda":
         advect_layout(c["n"])  # raises where the kernels do not take n
         run = lambda x: _rollout_cuda(x, c, steps)  # noqa: E731

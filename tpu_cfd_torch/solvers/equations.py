@@ -163,46 +163,29 @@ class RK4CrankNicolsonStepper(IMEXStepper):
         return u
 
 
-# ms a step of the RK4-CN rollout by route, measured on an NVIDIA H100 80GB
-# HBM3 at a 700 W power limit (``python3 -m tpu_cfd_torch.ops.cuda.route_times
-# --sweep solver``: viscosity 1e-3, medians of three rounds of CUDA events;
-# PERF.md §6). Keys (n, batch); routes in the order of _ROUTES. Every column
-# is the mean of two sweeps in one call, taken after both FFT kernels of the
-# fused rollout (its first-axis inverse and its advection) were radix FFTs in
-# shared memory and the rollout launched from arguments built once.
-_ROUTES = ("dft_galerkin_fused", "dft_aligned_fused", "fft", "dft_galerkin")
-_H100_MS_PER_STEP = {
-    (64, 8): (0.1234, 0.1244, 2.7135, 4.7872),
-    (64, 32): (0.1162, 0.1260, 2.8110, 5.2214),
-    (64, 128): (0.1537, 0.1660, 2.7227, 5.7470),
-    (128, 8): (0.1587, 0.1532, 2.5457, 4.5412),
-    (128, 32): (0.1826, 0.1847, 2.7199, 5.3113),
-    (128, 128): (0.4786, 0.5346, 2.7292, 5.4222),
-    (256, 8): (0.2049, 0.2127, 2.6817, 5.8944),
-    (256, 32): (0.4602, 0.6067, 2.5832, 5.2425),
-    (256, 128): (1.3495, 2.1199, 5.9591, 10.4382),
-    (512, 8): (0.7372, 0.9511, 2.9006, 5.1959),
-    (512, 32): (2.1895, 3.4496, 6.0473, 14.1980),
-    (512, 128): (8.1699, 13.1848, 21.6521, 50.0643),
-    (1024, 8): (3.5216, 6.2131, 6.0932, 20.4294),
-    (1024, 32): (12.8546, 23.8215, 21.6663, 74.6327),
-    (1024, 128): (50.8372, 93.6214, 83.2515, 289.5397),
-}
-# The two sweeps behind the table moved a point's fused times by up to 4 %
-# against each other, so a route takes the default from the Galerkin block's
-# kernel only where it is faster by more than 5 %.
-_ROUTE_MARGIN = 1.05
-
-
-def _measured_ms(grid_size: int, batch_size: int) -> dict:
-    """The route times of the measured point nearest (grid_size, batch_size)
-    in log2 of each; sizes and batches outside the grid take its edge."""
-    def nearest(x, grid):
-        return min(grid, key=lambda g: (abs(math.log2(max(x, 1) / g)), g))
-
-    n = nearest(grid_size, sorted({k[0] for k in _H100_MS_PER_STEP}))
-    b = nearest(batch_size, sorted({k[1] for k in _H100_MS_PER_STEP}))
-    return dict(zip(_ROUTES, _H100_MS_PER_STEP[(n, b)]))
+def fused_refusal(solver: Optional[IMEXStepper], dtype: torch.dtype, smooth: bool,
+                  fft_impl: Optional[str] = None) -> Optional[str]:
+    """The first requirement of the fused RK4-CN kernel (``fused=True``) that
+    a solver configuration breaks, as the message the solver raises, or
+    ``None`` where the kernel can step it. ``solver=None`` is the default
+    stepper (the low-storage RK4-CN); ``fft_impl`` is checked when given.
+    The grid size is checked at launch (``spectral_step.advect_layout``):
+    the plain version on the CPU steps any n."""
+    if fft_impl is not None and fft_impl not in ("dft_aligned", "dft_galerkin"):
+        return ("fused=True requires fft_impl='dft_aligned' or 'dft_galerkin' "
+                "(the fused kernel bakes the truncated spectrum layout)")
+    if not smooth:
+        return "fused=True requires smooth=True"
+    if dtype != torch.float32:
+        return "fused=True is fp32-only"
+    if solver is not None and not (
+        isinstance(solver, RK4CrankNicolsonStepper)
+        and solver.low_storage
+        and solver.order == 4
+    ):
+        return ("fused=True implements the low-storage RK4-CN stepper only; "
+                "pass solver=None")
+    return None
 
 
 def recommended_fft_impl(
@@ -211,59 +194,28 @@ def recommended_fft_impl(
     double: bool = False,
     dealias: bool = True,
 ) -> str:
-    """The solver transform the port uses by default on the card: the
-    fastest route measured on an NVIDIA H100 80GB HBM3 (700 W) at the
-    nearest (n, b) of n ∈ {64, ..., 1024}, b ∈ {8, 32, 128}
-    (``_H100_MS_PER_STEP``).
+    """The solver transform the port uses by default on the card: the fused
+    RK4-CN kernel on the Galerkin block (``dft_galerkin_fused``) wherever it
+    can step the run (fp32, dealiased, an n its kernels take:
+    ``spectral_step.advect_takes``), else ``torch.fft``.
 
-    fp32 dealiased runs take the hand-written fused RK4-CN kernel on the
-    Galerkin block (``dft_galerkin_fused``) at every measured point (256²,
-    b=32: 0.4602 ms a step against 2.5832 for ``torch.fft``). Another route
-    takes over only where it is faster by more than ``_ROUTE_MARGIN``, more
-    than the sweeps moved: the aligned layout (``dft_aligned_fused``) read
-    0.1532 against the block's 0.1587 at 128², b=8, 3.5 % and within it, so
-    the block keeps that point. Since the first-axis kernel became radix
-    FFTs, five points changed route: 512² from b=32 up and 1024² at every
-    batch went from ``fft`` to the kernel (1024², b=32: 12.8546 against
-    21.6663, where the kernel's one dense product, the forward first axis,
-    grows as n³).
-    fp64 runs and runs without dealiasing take ``fft``: the kernel is
-    fp32-only and steps on the 2/3-rule block. An n the kernel does not
-    take (not a power of two from 16 to 2048) takes
-    ``recommended_unfused_impl``'s route.
+    From ``python3 -m tpu_cfd_torch.ops.cuda.route_times --sweep solver`` on
+    an NVIDIA H100 80GB HBM3 at 700 W, the mean of two sweeps in one call:
+    at n 64–1024 and b 8–128 the Galerkin kernel was the fastest route or
+    within 4 % of it (the aligned layout's kernel read 3.6 % faster at 128²,
+    b=8, within the sweeps' drift), e.g. 0.4602 ms a step at 256², b=32
+    against 2.5832 for ``torch.fft``; ``torch.fft`` was the fastest route
+    without the kernel at every point (``dft_galerkin``, ``torch.matmul``,
+    5.2425 ms there). ``batch_size`` is not consulted: the kernel won at
+    every batch measured. The sweep lists the points where this answer is
+    more than 5 % slower than the fastest; re-run it after a kernel change.
     """
-    if double or not dealias:
-        return "fft"
     from tpu_cfd_torch.ops.cuda import spectral_step
 
-    if not spectral_step.advect_takes(grid_size):
-        return recommended_unfused_impl(grid_size, batch_size, double, dealias)
-    ms = _measured_ms(grid_size, batch_size)
-    best = min(ms, key=ms.get)
-    if ms["dft_galerkin_fused"] <= ms[best] * _ROUTE_MARGIN:
-        return "dft_galerkin_fused"
-    return best
-
-
-def recommended_unfused_impl(
-    grid_size: int,
-    batch_size: int = 8,
-    double: bool = False,
-    dealias: bool = True,
-) -> str:
-    """The default transform where the fused kernel cannot run (an
-    integrator other than the low-storage RK4-CN, e.g. the ``fno`` dataset's
-    IMEX order 2): the fastest route without it in ``_H100_MS_PER_STEP``.
-
-    That is ``torch.fft`` at every measured point on the NVIDIA H100 80GB
-    HBM3 (700 W): the ``torch.matmul`` Galerkin path (``dft_galerkin``, the
-    TPU's choice) took 5.2425 ms a step at 256², b=32, against 2.5832, and
-    4.7872 against 2.7135 at 64², b=8.
-    """
-    if double or not dealias:
+    dtype = torch.float64 if double else torch.float32
+    if fused_refusal(None, dtype, dealias) or not spectral_step.advect_takes(grid_size):
         return "fft"
-    ms = _measured_ms(grid_size, batch_size)
-    return min((r for r in ms if not r.endswith("_fused")), key=ms.get)
+    return "dft_galerkin_fused"
 
 
 @dataclasses.dataclass
@@ -279,7 +231,8 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
     converted once per ``forward``; public spectra stay ``(..., n, n//2+1)``.
     ``mxu_precision`` keeps the JAX package's name; on the card every mode
     computes in fp32. ``fused=True`` runs ``forward`` through the CUDA
-    rollout (fp32, dealiased, low-storage RK4-CN, aligned or Galerkin).
+    rollout (fp32, dealiased, low-storage RK4-CN, aligned or Galerkin:
+    ``fused_refusal``).
     ``device=None`` means the card, and raises when there is none.
     """
 
@@ -334,25 +287,9 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
         if self.solver is None:
             self.solver = RK4CrankNicolsonStepper()
         if self.fused:
-            if self.fft_impl not in ("dft_aligned", "dft_galerkin"):
-                raise ValueError(
-                    "fused=True requires fft_impl='dft_aligned' or "
-                    "'dft_galerkin' (the fused kernel bakes the truncated "
-                    "spectrum layout)"
-                )
-            if not self.smooth:
-                raise ValueError("fused=True requires smooth=True")
-            if self.dtype != torch.float32:
-                raise ValueError("fused=True is fp32-only")
-            if not (
-                isinstance(self.solver, RK4CrankNicolsonStepper)
-                and self.solver.low_storage
-                and self.solver.order == 4
-            ):
-                raise ValueError(
-                    "fused=True implements the low-storage RK4-CN stepper "
-                    "only; pass solver=None"
-                )
+            refusal = fused_refusal(self.solver, self.dtype, self.smooth, self.fft_impl)
+            if refusal:
+                raise ValueError(refusal)
         n = self.grid.shape[-1]
         self._m_full = n // 2 + 1
         self._rows = None
