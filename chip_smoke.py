@@ -37,10 +37,10 @@ printing no result, when either is missing or any phase fails:
    kernel pair, each transform on its fused kernel, or the ``torch.fft``
    arithmetic);
 7. times every kernel beside its bound (by bytes, or by operations at the
-   faster of FFMA and 3xTF32 on the tensor cores, both kept; the advection
-   kernel's FFT-rule operations at FFMA alone; the FFN also by
-   its device time, without the wrapper's host time), its plain
-   version and the library call (the DFT pair at main path 3's m=12 too,
+   faster of FFMA and 3xTF32 on the tensor cores, both kept; the RK4-CN
+   stage's FFT-rule operations at FFMA alone; the FFN and the stage's
+   kernels also by their device time, without the wrapper's host time),
+   its plain version and the library call (the DFT pair at main path 3's m=12 too,
    and each transform on its two-pass route beside the fused one), the
    RK4-CN stage's three kernels in both layouts and the rollouts beside
    ``torch.fft`` in three rounds with their spread, the SFNO train step
@@ -309,7 +309,8 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # the radix-FFT kernels of the RK4-CN stage, by the name of their entry
 # point, and the name of their device function
 FFT_KERNELS = {"spectral_inverse_first": "inverse_fft_kernel",
-               "spectral_advect": "advect_fft_kernel"}
+               "spectral_advect": "advect_fft_kernel",
+               "spectral_forward_first": "forward_fft_kernel"}
 
 
 def device_ms(fn, kernel: str, iters: int = 20, sessions: int = 3):
@@ -944,29 +945,42 @@ def main() -> int:
     h = torch.randn_like(w) * w.abs().mean()
     wk, hk = w.clone(), h.clone()  # forward_first updates these in place
     R, m = c["R"], c["m"]
+
+    def stage_work(b: int, R: int, m: int) -> dict:
+        """(operations, bytes) of the RK4-CN stage's kernels at b samples of
+        an (R, m) spectrum, by the FFT rule, as the kernels do the work: a
+        complex n-point FFT 5 n log2 n; each input read and each output
+        written once (the twiddle table is a few KB)."""
+        fft = 5 * N * math.log2(N)
+        return {
+            # an FFT a column of each field and the multipliers (3 a kept
+            # mode and field); w and cf read, A written
+            "spectral_inverse_first": (b * (4 * m * fft + 12 * R * m),
+                                       b * R * m * 8 + 4 * R * m * 4 + b * 4 * N * m * 8),
+            # 2.5 FFTs a row and the product (3 a point); A read, T written
+            "spectral_advect": (b * (N * 2.5 * fft + 3 * N * N),
+                                b * 4 * N * m * 8 + b * N * m * 8),
+            # an FFT a column and the update (16 a kept mode); T and the
+            # per-mode constants read, h and w read and written
+            "spectral_forward_first": (b * (m * fft + 16 * R * m),
+                                       b * N * m * 8 + R * m * (3 * 4 + 8)
+                                       + 4 * b * R * m * 8),
+        }
+
+    work = stage_work(B, R, m)
     kernels = {
         "spectral_inverse_first": (
             lambda: ss.inverse_first(w, c),
             lambda: ss._inverse_first_plain(w, c),
-            # by the FFT rule, as the kernel does it: a complex n-point FFT
-            # (5 n log2 n) a column of each field and the multipliers (3 a
-            # kept mode and field); w and cf read and A written once
-            B * (4 * m * 5 * N * math.log2(N) + 12 * R * m),
-            B * R * m * 8 + 4 * R * m * 4 + B * 4 * N * m * 8),
+            *work["spectral_inverse_first"]),
         "spectral_advect": (
             lambda: ss.advect(A, c, jc),
             lambda: ss._advect_plain(A, c),
-            # by the FFT rule, as the kernel does it: 2.5 complex n-point FFTs
-            # a row (5 n log2 n each) and the product (3 a point); A read
-            # and T written once (the twiddle table is a few KB)
-            B * (N * 2.5 * 5 * N * math.log2(N) + 3 * N * N),
-            B * 4 * N * m * 8 + B * N * m * 8),
+            *work["spectral_advect"]),
         "spectral_forward_first": (
             lambda: ss.forward_first(T, wk, hk, c, 1),
             lambda: ss._forward_first_plain(T, w, h, c, 1),
-            # complex (R x n)(n x m) + the per-mode update
-            B * (8 * N * R * m + 16 * R * m),
-            B * N * m * 8 + R * N * 8 + R * m * (3 * 4 + 8) + 4 * B * R * m * 8),
+            *work["spectral_forward_first"]),
     }
     results = {}
     for name, (kern, plain, flops, nbytes) in kernels.items():
@@ -1448,7 +1462,7 @@ def main() -> int:
             r["device_ms"] = device_ms(kern, "ffn_kernel")
         r["plain_ms"] = cuda_ms(plain, 20)
         r["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
-        # K1's and K2's FFTs are no product: their flops are bound at FFMA
+        # the RK4-CN stage's FFTs are no product: their flops are bound at FFMA
         r.update(_bound(flops, nbytes, product=name not in FFT_KERNELS))
     chain_ms = cuda_ms(chain, 20)
 
@@ -1492,9 +1506,9 @@ def main() -> int:
               f"{100 * spread[k]['spread']:.1f} %)", flush=True)
     for name in kernels:
         results[name]["ms"] = spread[f"{name} galerkin"]["median"]
-    # K1 and K2 take a few tens of microseconds, about what a launch through
-    # the wrapper takes the host, so their events time the host: the device's
-    # time comes from the profiler, on both layouts
+    # K1, K2 and K3 take a few tens of microseconds or less, about what a
+    # launch through the wrapper takes the host, so their events time the
+    # host: the device's time comes from the profiler, on both layouts
     step_device_ms = {f"{name} {layout}": device_ms(step_kernels[f"{name} {layout}"], kern)
                       for name, kern in FFT_KERNELS.items()
                       for layout in ("galerkin", "aligned")}
@@ -1528,14 +1542,15 @@ def main() -> int:
         row["library_ms_per_step"] = {
             f"dft_{layout}": cuda_ms(lambda: ns.forward(what, DT, rsteps), 1) / rsteps,
             "fft": spread[f"torch.fft b{b} ({layout} case)"]["median"]}
-        flops = b * ss.flops_per_sample_step(layout, N)
-        row["bound_ms_per_step"] = 1e3 * flops / max(FP32_FLOPS, TF32X3_FLOPS)
-        row["bound_ffma_ms_per_step"] = 1e3 * flops / FP32_FLOPS
+        # five stages of the three kernels, each at its FFT-rule bound
+        row["bound_ms_per_step"] = 5 * sum(
+            _bound(*counts, product=False)["bound_ms"]
+            for counts in stage_work(b, cb["R"], cb["m"]).values())
         row["sample_steps_per_s"] = b / (row["ms_per_step"] * 1e-3)
         lib = row["library_ms_per_step"]
         print(f"time rollout {layout} b{b}: kernel {row['ms_per_step']:.4f} ms/step "
               f"({row['sample_steps_per_s']:.1f} sample-steps/s), bound "
-              f"{row['bound_ms_per_step']:.4f} (FFMA {row['bound_ffma_ms_per_step']:.4f}), "
+              f"{row['bound_ms_per_step']:.4f} (FFT rule), "
               f"plain {row['plain_ms_per_step']:.4f}, torch.matmul dft_{layout} "
               f"{lib[f'dft_{layout}']:.4f}, torch.fft {lib['fft']:.4f} ms/step", flush=True)
         rollouts.append(row)

@@ -7,11 +7,11 @@ rel-L2 < 5e-6 against JAX "highest", < 1e-3 against JAX "high"
 (the tolerances of tests/test_fused_step.py). The CUDA kernels themselves
 run only on the card: the test marked ``cuda`` holds them against the plain
 version there and skips here. What the card's kernels compute by FFTs is
-held here instead: the first-axis kernel's (K1) slot map and transforms
-(with ``torch.fft``) and its shared-memory indexing against the plain
+held here instead: the first-axis kernels' (K1, K3) slot map and transforms
+(with ``torch.fft``) and their shared-memory indexing against the plain
 version, the advection kernel's (K2) packing of rows into complex transforms
 (with ``torch.fft``) against the plain version, its Stockham passes and
-twiddle table against ``numpy.fft``, and both kernels' block layout rules.
+twiddle table against ``numpy.fft``, and the kernels' block layout rules.
 """
 
 import jax
@@ -482,6 +482,133 @@ def test_inverse_layout_by_shape():
             tss.inverse_layout(n, n)
 
 
+def _forward_first_fft(T, c, n):
+    """K3's transform by the card kernel's scheme, with torch.fft: each
+    column's unnormalised n-point forward transform along the first axis,
+    as F is, read at K1's slots."""
+    return torch.fft.fft(T, dim=-2)[:, torch.from_numpy(_k1_slots(n, c["R"]))]
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n", [16, 32, 64, 256])
+def test_forward_fft_scheme_matches_plain(layout, n):
+    """The card's first-axis forward FFTs, read at K1's slots, compute the
+    dense product F T of the plain version (rel-L2 < 1e-5, batch 3)."""
+    c = tss.constants(layout, tgrids.Grid((n, n), domain=DOMAIN), 1e-3, 0.0, DT, "cpu")
+    T = torch.randn(3, n, c["m"], dtype=torch.complex64,
+                    generator=torch.Generator().manual_seed(n + 1))
+    want = torch.matmul(c["F"], T)
+    assert _rel(_forward_first_fft(T, c, n).numpy(), want.numpy()) < 1e-5
+
+
+def _k3_phase_bytes(n, R, tc):
+    """Bytes of each phase a K3 block keeps in shared memory, as the kernel
+    sizes them (``k3_smem`` takes the largest): h's and w's tiles (R rows
+    ``tc | 1`` apart each) beside (1) T's tile of n rows, (2) tc exchange
+    rows of n points, one float2 of padding every 16, (3) the R kept rows."""
+    tcp = tc | 1
+    hw = 8 * 2 * R * tcp
+    return 8 * n * tcp + hw, 8 * tc * (n + n // 16) + hw, 8 * R * tcp + hw
+
+
+def _k3_blocks(T, w, h, c, n, tc, k):
+    """The card's K3 as its blocks index shared memory: thread tid stages
+    column cc = tid % tc of rows tid / tc + j G of T (rows tc | 1 apart, zeros
+    past column m) and of h (past stage 0) and w after the region that T's
+    tile, the exchange rows and the kept outputs share; transform col reads
+    its points t + G k from there, its kept outputs go point-major to row
+    ``kept_row`` of their slot, and thread tid updates column cc of rows
+    tid / tc + j G. Unwritten shared memory reads NaN, so a read of it shows
+    in the result; every entry of h and w is written once."""
+    b, _, m = T.shape
+    R = c["R"]
+    g, tcp = n // 16, tc | 1
+    region = max(n * tcp, tc * (n + g))
+    hs, ws = region, region + R * tcp
+    tid = np.arange(tc * g)
+    t, col = tid % g, tid // g
+    cc, r0 = tid % tc, tid // tc
+    j = np.arange(16)[None]
+    filt, frc, lin = c["filt"].numpy(), c["forcing"].numpy(), c["lin"].numpy()
+    dens, beta = c["dens"][k].numpy(), tss._BETAS[k]
+    dtg, mu = c["dt_gammas"][k], c["mus"][k]
+    W, H = w.astype(complex), h.astype(complex)
+    hits = np.zeros(w.shape, int)
+    for s in range(b):
+        for c0 in range(0, m, tc):
+            sm = np.full(region + 2 * R * tcp, np.nan, complex)
+            assert 8 * sm.size == max(_k3_phase_bytes(n, R, tc))
+            live = cc < m - c0
+            cols = np.broadcast_to(np.minimum(c0 + cc, m - 1)[:, None], (tc * g, 16))
+            x = r0[:, None] + g * j
+            sm[x * tcp + cc[:, None]] = np.where(live[:, None], T[s, x, cols], 0)
+            rr = r0[:, None] + g * j
+            ok = live[:, None] & (rr < R)
+            o = (rr * tcp + cc[:, None])[ok]
+            if k:
+                sm[hs + o] = h[s, rr[ok], cols[ok]]
+            sm[ws + o] = w[s, rr[ok], cols[ok]]
+            p = t[:, None] + g * j
+            tiles = np.zeros((tc, n), complex)
+            tiles[col[:, None], p] = sm[p * tcp + col[:, None]]
+            out = np.fft.fft(tiles, axis=-1)
+            sm[:region] = np.nan  # the exchange rows' contents
+            r = np.where(p < R // 2, p, np.where(p >= n - R // 2, p - (n - R), -1))
+            kept = r >= 0
+            sm[(r * tcp + col[:, None])[kept]] = out[col[:, None], p][kept]
+            rk, ck = rr[ok], cols[ok]
+            e = sm[o] * filt[rk, ck] + frc[rk, ck]
+            hv = e + beta * sm[hs + o] if k else e
+            wv = sm[ws + o]
+            W[s, rk, ck] = (wv + dtg * hv + mu * (lin[rk, ck] * wv)) * dens[rk, ck]
+            H[s, rk, ck] = hv
+            hits[s, rk, ck] += 1
+    assert (hits == 1).all() and np.isfinite(W).all() and np.isfinite(H).all()
+    return W, H
+
+
+@pytest.mark.parametrize("layout", ["galerkin", "aligned"])
+@pytest.mark.parametrize("n,tc,k", [(16, 32, 0), (64, 6, 3), (64, 3, 1), (128, 5, 0),
+                                    (256, 12, 2)])
+def test_forward_kernel_indexing(layout, n, tc, k):
+    """K3's staging, point-major kept outputs and (r, c) update walk, as the
+    card kernel indexes them (``_k3_blocks``), give the plain version's
+    (w, h) at stage 0 and later stages (rel-L2 < 1e-5, batch 2), with tiles
+    that overrun m and odd column counts."""
+    grid = tgrids.Grid((n, n), domain=DOMAIN)
+    gen = torch.Generator().manual_seed(n + tc + k)
+    c = tss.constants(layout, grid, 1e-3, 0.1, DT, "cpu")
+    R, m = c["R"], c["m"]
+    c["forcing"] = torch.randn(R, m, dtype=torch.complex64, generator=gen)
+    T = torch.randn(2, n, m, dtype=torch.complex64, generator=gen)
+    w = torch.randn(2, R, m, dtype=torch.complex64, generator=gen)
+    h = torch.randn(2, R, m, dtype=torch.complex64, generator=gen)
+    assert m % tc
+    got = _k3_blocks(T.numpy(), w.numpy(), h.numpy(), c, n, tc, k)
+    want = tss._forward_first_plain(T, w, h, c, k)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_.numpy()) < 1e-5
+
+
+def test_forward_layout_by_shape():
+    """K3's block rule: 16 columns a block up to 256² (32 at 16²), 8 at 512²
+    and 1024², 3 at 2048², n/16 threads a column's transform; a whole number
+    of warps up to 512 threads (the kernel's launch bound), each phase's
+    shared memory within a block's 232,448 bytes at every n it takes, in both
+    layouts; an n it does not take raises."""
+    assert tss.forward_layout(256, 170) == (16, 256)
+    assert max(_k3_phase_bytes(256, 170, 16)) == 81_056
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048):
+        for R in (len(tdft.galerkin_block(n)[0]), n):
+            tc, threads = tss.forward_layout(n, R)
+            assert tc == {16: 32, 512: 8, 1024: 8, 2048: 3}.get(n, 16)
+            assert threads == tc * n // 16 and threads % 32 == 0 and threads <= 512
+            assert max(_k3_phase_bytes(n, R, tc)) <= 232_448
+    for n in (8, 96, 4096):
+        with pytest.raises(ValueError, match="power of two from 16 to 2048"):
+            tss.forward_layout(n, n)
+
+
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
 def test_packing_pairs_fields_of_like_size(layout):
     """Why the kernel packs u with v and ∂ω/∂x with ∂ω/∂y: in fp32 a complex
@@ -574,12 +701,13 @@ def test_cpu_rollout_takes_any_n():
 
 @pytest.mark.parametrize("layout", ["galerkin", "aligned"])
 def test_kernel_operand_layouts(layout):
-    """The kernels' copies of the constants: F transposed for K3, the FFTs'
-    twiddle table, the four multipliers as (4, R, m) planes for K1 (and no
-    dense matrix for the axes the FFTs take)."""
+    """The kernels' copies of the constants: the FFTs' twiddle table and the
+    four multipliers as (4, R, m) planes for K1, and no dense matrix for the
+    kernels: every axis is an FFT on the card, so F stays only for the plain
+    version and its transpose is gone."""
     c = tss.constants(layout, TG, 1e-3, 0.0, DT, "cpu")
-    assert torch.equal(c["FT"], c["F"].T)
+    assert "FT" not in c and tuple(c["F"].shape) == (c["R"], N)
     assert c["cf"].dtype == torch.float32 and tuple(c["cf"].shape) == (4, c["R"], c["m"])
     assert torch.equal(c["tw"], torch.from_numpy(tss._twiddles(N)))
     assert not {"il", "GT", "cf4"} & set(c)
-    assert all(c[k].is_contiguous() for k in ("FT", "cf", "tw"))
+    assert all(c[k].is_contiguous() for k in ("cf", "tw"))

@@ -18,23 +18,23 @@
 //      -(u dw/dx + v dw/dy) and the forward last-axis transform, as radix
 //      FFTs in shared memory. The physical fields never reach device
 //      memory.
-//   K3 spectral_forward_first: the forward first-axis DFT (R x n)(n x m)
-//      with the dealias filter, the constant forcing, h = e + beta_k h and
-//      the per-mode Crank-Nicolson update in its epilogue, in place on the
-//      state.
+//   K3 spectral_forward_first: the forward first-axis transforms of T's
+//      columns, as radix FFTs in shared memory, their R kept outputs taken
+//      into the dealias filter, the constant forcing, h = e + beta_k h and
+//      the per-mode Crank-Nicolson update, in place on the state.
 //
 // Arithmetic is fp32 on the CUDA cores throughout (FFMA), for every
 // precision mode, so all three modes compute at least the accuracy that
 // "highest" asks for.
 //
-// K1 and K2 are radix FFTs; both are bound by bytes. n/16 threads hold an
-// n-point transform, 16 points each, and run Stockham passes of radix 16 (the
-// last of radix 2, 4, 8 or 16) in registers with one exchange through shared
-// memory between passes (one float2 of padding every 16, so no bank
+// K1, K2 and K3 are radix FFTs, all three bound by bytes. n/16 threads hold
+// an n-point transform, 16 points each, and run Stockham passes of radix 16
+// (the last of radix 2, 4, 8 or 16) in registers with one exchange through
+// shared memory between passes (one float2 of padding every 16, so no bank
 // conflicts). The twiddles come from a host table (float64 rounded to
 // float32); n is a power of two from 16 to 2048, and the host picks each
 // kernel's blocks from the shape (spectral_step.py::inverse_layout,
-// advect_layout).
+// advect_layout, forward_layout).
 //
 // K1 takes the first axis: column c of field f is the n-point inverse
 // transform of i c_f w[:, c], its R kept rows put at their wavenumbers' slots
@@ -49,11 +49,15 @@
 // reads its points, transforms, and stages the outputs point-major so that
 // A's rows are written along c.
 //
-// K3 is a dense product: per sample and step 5 * 8 n R m flops, at 256^2
-// Galerkin 0.15 GFLOP, a register-tiled product whose operands are staged in
-// shared memory by cp.async one chunk ahead of the FMAs: 64 x 32 (r, c)
-// tiles, 32-deep chunks of x, 4 x 2 a thread, the Crank-Nicolson update in
-// the epilogue, in place on h and w.
+// K3 mirrors K1: column c of T[s] is the unnormalised n-point forward
+// transform, as the dense matrix F is, and slot p of it is kept row r by the
+// same slot map. That is m complex FFTs a sample: at 256^2 Galerkin, b=32,
+// 0.028 GFLOP a launch against 5.6 MB of T read and 15 MB of h and w read
+// and written (6.2 us at 3.35 TB/s). A block takes a tile of consecutive
+// columns of one sample: it stages T's tile with loads coalesced along c,
+// puts h's and w's tiles in flight beside it, transforms, keeps the R rows
+// point-major, and every thread walks the (r, c) tile, c fastest, for the
+// Crank-Nicolson update.
 //
 // K2 does by the FFT rule what a dense product would do in n^2 m: u and v
 // of a physical row go into one complex row z1 = u + i v, dw/dx and dw/dy
@@ -73,19 +77,9 @@
 
 namespace {
 
-constexpr int K1_THREADS = 512;  // the most threads a K1 block
+constexpr int AXIS0_THREADS = 512;  // the most threads a K1 or K3 block
 constexpr size_t SMEM_LIMIT = 232448;  // bytes of shared memory a block may have
-constexpr int K3_THREADS = 256;
-constexpr int K3_BM = 64, K3_BN = 32, K3_KC = 32, K3_TM = 4, K3_TN = 2;
 constexpr int K2_THREADS = 256;  // the most threads a K2 block
-
-__device__ __forceinline__ float2 cmac(float2 acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, acc.x);
-  acc.x = fmaf(-a.y, b.y, acc.x);
-  acc.y = fmaf(a.x, b.y, acc.y);
-  acc.y = fmaf(a.y, b.x, acc.y);
-  return acc;
-}
 
 // cp.async of 4 or 8 bytes; zeros where !ok (nothing is read then)
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
@@ -106,7 +100,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The radix passes of K1 and K2. rot16 turns a by e sixteenths of a turn, clockwise for
+// The radix passes of K1, K2 and K3. rot16 turns a by e sixteenths of a turn, clockwise for
 // the forward transform and counterclockwise for the inverse (e in 0..7);
 // e is known once the loops are unrolled, so its branches fold.
 constexpr float K2_C1 = 0.923879532511286756f;  // cos(pi/8)
@@ -246,6 +240,15 @@ __device__ __forceinline__ void fft_passes(float2 (&v)[NV][16], float2* const (&
   }
 }
 
+// The slot map of K1 and K3: slot p of an n-point first-axis transform
+// holds kept row p below R/2 and row p - (n - R) from n - R/2 up (the
+// Galerkin block's signed modes; every slot its own row where R = n), and no
+// kept row in the gap between (-1).
+__device__ __forceinline__ int kept_row(int p, int n, int R) {
+  const int h = R / 2;
+  return p < h ? p : p >= n - h ? p - (n - R) : -1;
+}
+
 // K1's tiles in shared memory, for tc columns at n = 16 g points (the
 // launcher sizes a block's shared memory from them). The staged rows are
 // tcp = tc | 1 apart, an odd number, so that a transform's consecutive
@@ -270,16 +273,15 @@ __host__ __device__ constexpr size_t k1_smem(int log2n, int R, int tc, int fb) {
 
 // K1: A[s, f, x, c] = (1/n) sum_p e^{2 pi i p x / n} Z[p] for c < m, the
 // inverse first-axis transform of column c of field f, where Z[p] =
-// i cf[f, r, c] w[s, r, c] at the slot p of kept row r and zero at the other
-// slots: rows r < R/2 sit at slots r, the rows from R/2 at n - R + r (the
-// Galerkin block's signed modes; the identity where R = n). A block takes
-// tc consecutive columns c0.. of sample s and fb fields f0.. (fb = 1 or 4):
-// tc fb transforms, transform i = col fb + fl, G threads each. Its shared
+// i cf[f, r, c] w[s, r, c] at the slot p of kept row r (kept_row) and zero
+// at the other slots. A block takes tc consecutive columns c0.. of sample s
+// and fb fields f0.. (fb = 1 or 4): tc fb transforms, transform
+// i = col fb + fl, G threads each. Its shared
 // memory holds in turn (1) w's tile and the fields' multipliers, staged by
 // loads coalesced along c; (2) the transforms' exchange rows, NP float2 at
 // i NP; (3) the outputs, point-major, read back for stores along c.
 template <int LOG2N>
-__global__ void __launch_bounds__(K1_THREADS) inverse_fft_kernel(
+__global__ void __launch_bounds__(AXIS0_THREADS) inverse_fft_kernel(
     const float2* __restrict__ w, const float* __restrict__ cf,
     const float2* __restrict__ tw, float2* __restrict__ A, int R, int m, int tc,
     int fb) {
@@ -317,15 +319,13 @@ __global__ void __launch_bounds__(K1_THREADS) inverse_fft_kernel(
   // the kept slots (1/n is a power of two, so the scaling is exact)
   float2 v[1][16];
   {
-    const int h = R / 2, gap = N - R;
     const float2* const wc = ws + col;
     const float* const ca = cs + fl * cfs + col;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-      const int p = t + G * k;
+      const int r = kept_row(t + G * k, N, R);
       v[0][k] = make_float2(0.f, 0.f);
-      if (p < h || p >= N - h) {
-        const int r = p < h ? p : p - gap;
+      if (r >= 0) {
         const float2 z = wc[r * tcp];
         const float a = ca[r * tcp] * (1.f / N);
         v[0][k] = make_float2(-a * z.y, a * z.x);
@@ -469,85 +469,105 @@ __global__ void __launch_bounds__(K2_THREADS, 2) advect_fft_kernel(
   }
 }
 
-// K3: Z = F @ T, e = Z*filt + forcing, h = e + beta*h (h = e at stage 0),
-// w = (w + dtg*h + mu*lin*w) * dens, in place on h and w; FT = F^T (n x R).
-__global__ void __launch_bounds__(K3_THREADS) forward_first_kernel(
-    const float2* __restrict__ T, const float2* __restrict__ FT,
+// K3's tiles in shared memory, for tc columns at n points: one region holds
+// in turn T's staged tile (n rows tcp = tc | 1 apart), the transforms'
+// exchange rows (NP float2 a column) and the kept outputs (R rows tcp
+// apart); h's and w's tiles (R rows tcp apart each) follow it, in flight
+// through the transforms.
+__host__ __device__ constexpr int k3_region(int n, int tc) {
+  return n * (tc | 1) > tc * (n + n / 16) ? n * (tc | 1) : tc * (n + n / 16);
+}
+// bytes of shared memory a K3 block keeps
+__host__ __device__ constexpr size_t k3_smem(int log2n, int R, int tc) {
+  return 8 * ((size_t)k3_region(1 << log2n, tc) + 2 * (size_t)R * (tc | 1));
+}
+
+// K3: Z[r, c] = sum_x e^{-2 pi i p x / n} T[s, x, c] at the slot p of kept
+// row r (kept_row), e = Z filt + frc, h = e + beta h (h = e at stage 0),
+// w = (w + dtg h + mu lin w) dens, in place on h and w. A block takes tc
+// consecutive columns c0.. of sample s: tc transforms, transform col G
+// threads. Its shared memory holds (1) T's tile, staged by loads coalesced
+// along c, zeros past column m, with h's and w's tiles staged after it;
+// (2) the exchange rows; (3) the kept outputs, point-major, which every
+// thread reads back with h and w for the update along c.
+template <int LOG2N>
+__global__ void __launch_bounds__(AXIS0_THREADS) forward_fft_kernel(
+    const float2* __restrict__ T, const float2* __restrict__ tw,
     const float* __restrict__ filt, const float2* __restrict__ frc,
     const float* __restrict__ lin, const float* __restrict__ dens,
-    float2* __restrict__ h, float2* __restrict__ w, int R, int m, int n,
-    int first, float beta, float dtg, float mu) {
+    float2* __restrict__ h, float2* __restrict__ w, int R, int m, int tc, int first,
+    float beta, float dtg, float mu) {
+  using F = Fft<LOG2N>;
+  constexpr int N = F::N, G = F::G;
   extern __shared__ float4 smem4[];
-  float2* Fs = reinterpret_cast<float2*>(smem4);  // [2][KC][BM]
-  float2* Ts = Fs + 2 * K3_KC * K3_BM;             // [2][KC][BN]
-  constexpr int CGS = K3_BN / K3_TN;               // 16 column groups
-  const int tid = threadIdx.x, tc = tid % CGS, tr = tid / CGS;
-  const int c0 = blockIdx.x * K3_BN, r0 = blockIdx.y * K3_BM, s = blockIdx.z;
-  const float2* ts = T + (size_t)s * n * m;
-  auto load = [&](int buf, int k0) {
-    for (int i = tid; i < K3_KC * K3_BM; i += K3_THREADS) {
-      const int ki = i / K3_BM, ri = i % K3_BM, k = k0 + ki, r = r0 + ri;
-      const bool ok = k < n && r < R;
-      cp_async8(Fs + (buf * K3_KC + ki) * K3_BM + ri, ok ? FT + (size_t)k * R + r : FT, ok);
-    }
-    for (int i = tid; i < K3_KC * K3_BN; i += K3_THREADS) {
-      const int ki = i / K3_BN, ci = i % K3_BN, k = k0 + ki, c = c0 + ci;
-      const bool ok = k < n && c < m;
-      cp_async8(Ts + (buf * K3_KC + ki) * K3_BN + ci, ok ? ts + (size_t)k * m + c : ts, ok);
+  float2* const sm = reinterpret_cast<float2*>(smem4);
+  const int tcp = tc | 1, tid = threadIdx.x;
+  const int t = tid % G, col = tid / G;
+  const int c0 = blockIdx.x * tc, s = blockIdx.y;
+  // the staging and update loops' rows: thread tid takes column cc of rows
+  // r0 + j G (threads = tc G, so r0 < G)
+  const int cc = tid % tc, r0 = tid / tc;
+  const bool live = cc < m - c0;
+  float2* const hs = sm + k3_region(N, tc);  // [R][tcp]
+  float2* const ws = hs + R * tcp;            // [R][tcp]
+  const size_t p0 = (size_t)c0 + cc, o0 = (size_t)s * R * m + p0;
+
+  // (1) T[s, :, c0 : c0 + tc] in one group, h's (past stage 0) and w's
+  // tiles in the next, all in flight at once by cp.async
+  {
+    const float2* const tg = T + (size_t)s * N * m + p0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int x = r0 + j * G;
+      cp_async8(sm + x * tcp + cc, live ? tg + (size_t)x * m : T, live);
     }
     cp_async_commit();
-  };
-  float2 acc[K3_TM][K3_TN];
-#pragma unroll
-  for (int i = 0; i < K3_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < K3_TN; ++j) acc[i][j] = make_float2(0.f, 0.f);
-
-  const int chunks = (n + K3_KC - 1) / K3_KC;
-  load(0, 0);
-  for (int ch = 0; ch < chunks; ++ch) {
-    if (ch + 1 < chunks)
-      load((ch + 1) & 1, (ch + 1) * K3_KC);
-    else
-      cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float2* Fp = Fs + (ch & 1) * K3_KC * K3_BM + K3_TM * tr;
-    const float2* Tp = Ts + (ch & 1) * K3_KC * K3_BN + K3_TN * tc;
-#pragma unroll 8
-    for (int k = 0; k < K3_KC; ++k) {
-      const float4 f01 = *reinterpret_cast<const float4*>(Fp + k * K3_BM);
-      const float4 f23 = *reinterpret_cast<const float4*>(Fp + k * K3_BM + 2);
-      const float4 t01 = *reinterpret_cast<const float4*>(Tp + k * K3_BN);
-      const float2 fv[K3_TM] = {make_float2(f01.x, f01.y), make_float2(f01.z, f01.w),
-                                make_float2(f23.x, f23.y), make_float2(f23.z, f23.w)};
-      const float2 tv[K3_TN] = {make_float2(t01.x, t01.y), make_float2(t01.z, t01.w)};
-#pragma unroll
-      for (int i = 0; i < K3_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < K3_TN; ++j) acc[i][j] = cmac(acc[i][j], fv[i], tv[j]);
+    if (live) {
+      for (int r = r0; r < R; r += G) {
+        if (!first) cp_async8(hs + r * tcp + cc, h + o0 + (size_t)r * m, true);
+        cp_async8(ws + r * tcp + cc, w + o0 + (size_t)r * m, true);
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+    cp_async_wait<1>();
   }
+  __syncthreads();
+
+  // (2) this thread's points t + G k of column col, transformed
+  float2 v[1][16];
 #pragma unroll
-  for (int i = 0; i < K3_TM; ++i) {
-    const int r = r0 + K3_TM * tr + i;
-    if (r >= R) continue;
+  for (int k = 0; k < 16; ++k) v[0][k] = sm[(t + G * k) * tcp + col];
+  float2* const bufs[1] = {sm + col * F::NP};
+  fft_passes<LOG2N, false, 1>(v, bufs, t, tw, true);
+
+  // (3) the kept outputs point-major, row kept_row(p) of slot p
+  __syncthreads();  // every thread has read its points of the last pass
 #pragma unroll
-    for (int j = 0; j < K3_TN; ++j) {
-      const int c = c0 + K3_TN * tc + j;
-      if (c >= m) continue;
-      const size_t p = (size_t)r * m + c, o = (size_t)s * R * m + p;
+  for (int k = 0; k < 16; ++k) {
+    const int r = kept_row(t + G * k, N, R);
+    if (r >= 0) sm[r * tcp + col] = v[0][k];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!live) return;
+
+  // (4) the update of rows r0 + j G of column c0 + cc (R <= N = 16 G)
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int r = r0 + j * G;
+    if (r < R) {
+      const size_t p = p0 + (size_t)r * m, o = o0 + (size_t)r * m;
+      const float2 z = sm[r * tcp + cc];
       const float fl = filt[p];
       const float2 fv = frc[p];
-      const float2 e = make_float2(acc[i][j].x * fl + fv.x, acc[i][j].y * fl + fv.y);
+      const float2 e = make_float2(z.x * fl + fv.x, z.y * fl + fv.y);
       float2 hv = e;
       if (!first) {
-        const float2 ho = h[o];
+        const float2 ho = hs[r * tcp + cc];
         hv = make_float2(e.x + beta * ho.x, e.y + beta * ho.y);
       }
       h[o] = hv;
-      const float2 wv = w[o];
+      const float2 wv = ws[r * tcp + cc];
       const float li = lin[p], d = dens[p];
       w[o] = make_float2((wv.x + dtg * hv.x + mu * (li * wv.x)) * d,
                          (wv.y + dtg * hv.y + mu * (li * wv.y)) * d);
@@ -569,8 +589,8 @@ int launch_inverse(const void* w, const void* cf, const void* tw, void* A, int b
   // the host picks the blocks (inverse_layout), the shared memory follows from
   // them; refuse a layout the kernel cannot take or a block cannot hold
   using F = Fft<LOG2N>;
-  if ((fb != 1 && fb != 4) || tc < 1 || threads != tc * fb * F::G || threads > K1_THREADS ||
-      R < 2 || R % 2 || R > F::N || m < 1)
+  if ((fb != 1 && fb != 4) || tc < 1 || threads != tc * fb * F::G ||
+      threads > AXIS0_THREADS || R < 2 || R % 2 || R > F::N || m < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = k1_smem(LOG2N, R, tc, fb);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -595,6 +615,29 @@ int launch_advect(const void* A, const void* tw, void* T, int rows, int m, int t
   if (e != 0) return e;
   advect_fft_kernel<LOG2N><<<(rows + tx - 1) / tx, threads, smem, stream>>>(
       (const float2*)A, (const float2*)tw, (float2*)T, rows, m);
+  return (int)cudaGetLastError();
+}
+
+template <int LOG2N>
+int launch_forward(const void* T, const void* tw, const void* filt, const void* frc,
+                   const void* lin, const void* dens, void* h, void* w, int b, int R,
+                   int m, int tc, int threads, int first, float beta, float dtg,
+                   float mu, cudaStream_t stream) {
+  // the host picks the blocks (forward_layout), the shared memory follows from
+  // them; refuse a layout the kernel cannot take or a block cannot hold
+  using F = Fft<LOG2N>;
+  if (tc < 1 || threads != tc * F::G || threads > AXIS0_THREADS || R < 2 || R % 2 ||
+      R > F::N || m < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k3_smem(LOG2N, R, tc);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int e = set_smem((const void*)forward_fft_kernel<LOG2N>, smem);
+  if (e != 0) return e;
+  const dim3 grid((m + tc - 1) / tc, b);
+  forward_fft_kernel<LOG2N><<<grid, threads, smem, stream>>>(
+      (const float2*)T, (const float2*)tw, (const float*)filt, (const float2*)frc,
+      (const float*)lin, (const float*)dens, (float2*)h, (float2*)w, R, m, tc, first,
+      beta, dtg, mu);
   return (int)cudaGetLastError();
 }
 
@@ -640,20 +683,40 @@ int spectral_advect(const void* A, const void* tw, void* T, int b, int log2n, in
   }
 }
 
-int spectral_forward_first(const void* T, const void* FT, const void* filt,
-                           const void* frc, const void* lin, const void* dens,
-                           void* h, void* w, int b, int R, int m, int n,
-                           int first, float beta, float dtg, float mu,
-                           void* stream) {
-  const size_t smem = 2 * K3_KC * (K3_BM + K3_BN) * sizeof(float2);
-  const int e = set_smem((const void*)forward_first_kernel, smem);
-  if (e != 0) return e;
-  const dim3 grid((m + K3_BN - 1) / K3_BN, (R + K3_BM - 1) / K3_BM, b);
-  forward_first_kernel<<<grid, K3_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)T, (const float2*)FT, (const float*)filt,
-      (const float2*)frc, (const float*)lin, (const float*)dens, (float2*)h,
-      (float2*)w, R, m, n, first, beta, dtg, mu);
-  return (int)cudaGetLastError();
+// K3 at n = 2^log2n, 16 <= n <= 2048; the columns a block and the threads
+// come from the host (spectral_step.py::forward_layout).
+int spectral_forward_first(const void* T, const void* tw, const void* filt,
+                           const void* frc, const void* lin, const void* dens, void* h,
+                           void* w, int b, int R, int m, int log2n, int tc, int threads,
+                           int first, float beta, float dtg, float mu, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (log2n) {
+    case 4:
+      return launch_forward<4>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 5:
+      return launch_forward<5>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 6:
+      return launch_forward<6>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 7:
+      return launch_forward<7>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 8:
+      return launch_forward<8>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 9:
+      return launch_forward<9>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                               first, beta, dtg, mu, s);
+    case 10:
+      return launch_forward<10>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                                first, beta, dtg, mu, s);
+    case 11:
+      return launch_forward<11>(T, tw, filt, frc, lin, dens, h, w, b, R, m, tc, threads,
+                                first, beta, dtg, mu, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ of five stages; each stage is three hand-written kernels in
   transforms, per tile of columns, as radix FFTs in shared memory;
 - ``advect``: inverse last axis, advection product, forward last axis, per
   tile of whole physical rows, as radix FFTs in shared memory;
-- ``forward_first``: forward first axis with the Crank-Nicolson update.
+- ``forward_first``: forward first axis with the Crank-Nicolson update, per
+  tile of columns, as radix FFTs in shared memory.
 
 Every kernel has a wrapper that dispatches on the device of the tensor it
 is given: a CPU tensor goes to the plain PyTorch version of the same
@@ -21,12 +22,11 @@ kernel or raises. Each wrapper counts its launches in ``LAUNCHES``.
 ``_fused_rollout_plain`` is the whole rollout in plain PyTorch.
 
 On the card every precision mode computes in fp32 FFMA, at least the
-accuracy ``"highest"`` asks for: K1 and K2 run Stockham passes in registers
-and shared memory, K3 is a register-tiled product on the CUDA cores, its
-operands staged in shared memory by cp.async (the ``.cu`` header gives the
-design). ``constants`` lays the operands out for them (``FT`` and the FFTs'
-twiddle table ``tw``) beside the plain versions' matrices;
-``inverse_layout`` and ``advect_layout`` pick K1's and K2's blocks from the
+accuracy ``"highest"`` asks for: K1, K2 and K3 run Stockham passes in
+registers and shared memory (the ``.cu`` header gives the design).
+``constants`` lays the operands out for them (the FFTs' twiddle table
+``tw``) beside the plain versions' matrices; ``inverse_layout``,
+``advect_layout`` and ``forward_layout`` pick the kernels' blocks from the
 shape and refuse an n the kernels do not take. The rollout is forward-only:
 taking a gradient through it raises, as in the JAX package.
 """
@@ -57,8 +57,8 @@ _GAMMAS = (0.1496590219993, 0.3792103129999, 0.8229550293869,
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"inverse_first": 0, "advect": 0, "forward_first": 0}
 
-# the grid sizes K1 and K2 (csrc/spectral_step.cu inverse_fft_kernel,
-# advect_fft_kernel) take
+# the grid sizes the kernels (csrc/spectral_step.cu inverse_fft_kernel,
+# advect_fft_kernel, forward_fft_kernel) take
 _K2_MIN_N, _K2_MAX_N = 16, 2048
 
 
@@ -138,11 +138,11 @@ def _constants(layout: str, n: int, step, viscosity, drag, dt, device: str):
     # u = i(-tky·ilap)ŵ, v = i(tkx·ilap)ŵ, ∂ω/∂x = i·tkx·ŵ, ∂ω/∂y = i·tky·ŵ
     cf = np.stack([-tky * ilap, tkx * ilap, tkx, tky])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    # the kernels' operand layouts: F transposed, the FFTs' twiddles (where
-    # the kernels take n); K1 reads the multipliers ``cf`` as they are
+    # the FFTs' twiddles, where the kernels take n; K1 reads the multipliers
+    # ``cf`` as they are
     return {
         "n": n, "R": G.shape[1], "m": m,
-        "G": t(G), "F": t(F), "cf": t(cf), "FT": t(F.T),
+        "G": t(G), "F": t(F), "cf": t(cf),
         "tw": t(_twiddles(n)) if advect_takes(n) else None,
         "il_re": t(M["inv_last_re"]), "il_im": t(M["inv_last_im"]),
         "fl": t(_cplx(M["fwd_last_re"], M["fwd_last_im"])),
@@ -185,8 +185,7 @@ def _lib():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.spectral_inverse_first.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.spectral_advect.argtypes = [P] * 3 + [I] * 5 + [P]
-    lib.spectral_forward_first.argtypes = (
-        [P] * 8 + [I, I, I, I, I, F, F, F, P])
+    lib.spectral_forward_first.argtypes = [P] * 8 + [I] * 7 + [F] * 3 + [P]
     for fn in (lib.spectral_inverse_first, lib.spectral_advect,
                lib.spectral_forward_first):
         fn.restype = I
@@ -240,10 +239,11 @@ def _k2_args(A: Tensor, c: dict, T: Tensor, stream: int) -> tuple:
 
 def _k3_args(T: Tensor, w: Tensor, h: Tensor, c: dict, k: int, stream: int) -> tuple:
     b, n, R, m = w.shape[0], c["n"], c["R"], c["m"]
-    return (T.data_ptr(), c["FT"].data_ptr(), c["filt"].data_ptr(),
+    tc, threads = forward_layout(n, R)
+    return (T.data_ptr(), c["tw"].data_ptr(), c["filt"].data_ptr(),
             c["forcing"].data_ptr(), c["lin"].data_ptr(), c["dens"][k].data_ptr(),
-            h.data_ptr(), w.data_ptr(), b, R, m, n, int(k == 0), _BETAS[k],
-            c["dt_gammas"][k], c["mus"][k], stream)
+            h.data_ptr(), w.data_ptr(), b, R, m, n.bit_length() - 1, tc, threads,
+            int(k == 0), _BETAS[k], c["dt_gammas"][k], c["mus"][k], stream)
 
 
 def _launch_inverse_first(w: Tensor, c: dict, out=None) -> Tensor:
@@ -426,6 +426,35 @@ def inverse_layout(n: int, R: int):
 
 
 @functools.lru_cache(maxsize=None)
+def forward_layout(n: int, R: int):
+    """K3's blocks for an ``(R, m)`` spectrum on an n² grid, as ``(columns a
+    block, threads)``; raises ``ValueError`` for an n it does not take
+    (``advect_takes``). The kernel sizes its shared memory from these
+    (``k3_smem`` in ``csrc/spectral_step.cu``).
+
+    n/16 threads hold a column's transform, and a block takes ``tc``
+    consecutive columns of one sample: 16 up to 256² (32 at 16², a whole
+    warp), 8 at 512² and 1024², 3 at 2048². Of 1 to 64 columns that make
+    whole warps within 512 threads and the shared memory, by CUDA events
+    over launches queued behind a device sleep on an NVIDIA H100 80GB HBM3
+    (700 W) at n from 16 to 2048, batches 1 to 128 and both layouts, that
+    is the fastest or within 11 % of it from b=8 up, and within 17 % at
+    b = 1 and 4 but for 1024², b=1 (24 %). Wide tiles win at large
+    batches, narrow ones at small: at 256², b=32 the Galerkin block took
+    0.0101 ms a launch with 16 columns, 0.0096 with 24 (128 blocks, one an
+    SM) and 0.0110 with 8; 16 columns divide the aligned layout's 128,
+    where 24 ran 45 % slower.
+    """
+    if not advect_takes(n):
+        raise ValueError(
+            f"the first-axis kernel takes n a power of two from {_K2_MIN_N} to "
+            f"{_K2_MAX_N}, got n={n}; use fft_impl='fft' or another unfused route")
+    g = n // 16
+    tc = 3 if n == 2048 else 8 if n >= 512 else max(16, 32 // g)
+    return tc, tc * g
+
+
+@functools.lru_cache(maxsize=None)
 def advect_layout(n: int):
     """K2's blocks for an n² grid, as ``(rows a block, threads, bytes of
     shared memory)``; raises ``ValueError`` for an n it does not take
@@ -543,10 +572,9 @@ def fused_rollout_aligned(
 
 def flops_per_sample_step(layout: str, n: int) -> int:
     """Flops of one sample-step as the JAX kernel counts them: 5 stages of 4
-    inverse + 1 forward 2-D DFT, each axis a dense product. Of the card's
-    kernels only K3 still does that work: K1's first-axis and K2's
-    last-axis transforms are FFTs (the ``.cu`` header counts them), so this
-    over-counts the card's work."""
+    inverse + 1 forward 2-D DFT, each axis a dense product. None of the
+    card's kernels does that work: all their transforms are FFTs (the
+    ``.cu`` header counts them), so this over-counts the card's work."""
     if layout == "galerkin":
         rows, m = dft2d.galerkin_block(n)
         R = len(rows)
