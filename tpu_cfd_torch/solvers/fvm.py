@@ -6,7 +6,8 @@ dataclasses over Butcher tableaus whose stages run in Python; every field is
 a batch ``(b, *grid.shape)`` (or unbatched), and every shift, flux and
 reduction acts on the grid dims only, so each sample of a batch steps as
 it would alone. The pressure solve is ``solvers/pressure.py``'s (one
-``torch.fft`` pair when periodic).
+``torch.fft`` pair when periodic). ``rollout`` steps a batch and records its
+vorticity frames.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from tpu_cfd_torch.ops import finite_differences as fdm
 from tpu_cfd_torch.ops import interpolation
 from tpu_cfd_torch.solvers import forcings as forcings_mod
 from tpu_cfd_torch.solvers import pressure
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Grid = grids.Grid
 GridArray = grids.GridArray
@@ -213,6 +215,10 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
     222, eqs. 16-21). The forcing is state-independent, as every
     ``ForcingFn`` is: it is evaluated once, on first use in the field's dtype
     and device, since its mesh is built on the host.
+
+    Spans (``utils.trace_annotation``): ``solver.forward`` around a step,
+    ``solver.explicit`` around each evaluation of the explicit terms and
+    ``solver.projection`` around each projection.
     """
 
     viscosity: float = 1e-3
@@ -256,14 +262,33 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
         return dv_dt
 
     def explicit_terms(self, v: GridVariableVector, dt: float) -> GridVariableVector:
-        return self._explicit_terms(v, dt)
+        with trace_annotation("solver.explicit"):
+            return self._explicit_terms(v, dt)
 
     def pressure_projection(self, v: GridVariableVector) -> GridVariableVector:
-        return self._projection(v)
+        with trace_annotation("solver.projection"):
+            return self._projection(v)
 
     def forward(self, u: GridVariableVector, dt: float) -> GridVariableVector:
         """One RK time step with a projection after each stage."""
-        return self.solver(u, dt, self)
+        with trace_annotation("solver.forward"):
+            return self.solver(u, dt, self)
 
     step = forward
     __call__ = forward
+
+
+def rollout(v: GridVariableVector, equation: NavierStokes2DFVMProjection, dt: float,
+            inner_steps: int, frames: int):
+    """Steps ``v`` (a batch ``(b, *grid.shape)`` of independent samples, or
+    one sample) ``frames * inner_steps`` times by ``equation.forward`` and
+    records the finite-difference vorticity after every ``inner_steps``
+    steps; returns ``(frames (frames, b, n, n), final velocity)``, both on
+    the velocity's device. One ``gen.record`` span covers each frame's curl."""
+    recorded = []
+    for _ in range(frames):
+        for _ in range(inner_steps):
+            v = equation.forward(v, dt)
+        with trace_annotation("gen.record"):
+            recorded.append(fdm.curl_2d(v).data)
+    return torch.stack(recorded), v
