@@ -6,7 +6,7 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero,
 printing no result, when either is missing or any phase fails:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the four CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
+2. builds the five CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
    ``nvcc`` each, all at once;
 3. holds each spectral-step kernel, and the whole fused rollout in both
    layouts, against its plain PyTorch version on the same CUDA tensors at
@@ -112,7 +112,12 @@ printing no result, when either is missing or any phase fails:
    20 steps) in fp64 and with ``--f32``; checks that everything is finite
    and divergence-free (1e-12 in fp64, 1e-4 in fp32), holds the card
    against the CPU after 20 fp64 steps from the example's IC
-   (``FVM_DEVICE_TOL``), and prints the ms a step. No kernel runs here;
+   (``FVM_DEVICE_TOL``), and prints the ms a step. Each explicit evaluation
+   is one launch of ``ops/cuda/fvm_explicit.py`` (4 a step, by count); at
+   the benchmark's shape, b=512, 128², fp64, it holds that kernel against
+   the plain evaluation within ``FVM_KERNEL_TOL`` and times both by CUDA
+   events beside the kernel's bytes bound, and it times the one-sample step
+   on both routes in turns;
 14. drives main path 9, ``--data-parallel`` in both CLIs: ``generate
    mcwilliams`` at 256² → 64², 64 samples, b=32, 100 + 100 steps (100
    records), and ``train`` with phase 6's arguments, once in this process
@@ -173,6 +178,8 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import json
 import math
 import os
@@ -226,6 +233,10 @@ FVM_N, FVM_FRAMES, FVM_INNER = 128, 10, 20
 # card vs CPU after 20 fp64 steps: FFT roundoff through a scheme whose flux
 # is continuous in its inputs (the limiter's switches are scaled by the jump)
 FVM_DEVICE_TOL = 1e-10
+# the explicit-terms kernel at the benchmark's ensemble (b=512, 128^2, fp64)
+# against the plain evaluation: the same operations, fused multiply-adds
+# and reciprocals aside (tests/test_torch_fvm_explicit_kernel.py)
+FVM_BATCH, FVM_KERNEL_TOL = 512, 1e-12
 
 
 def _require(ok: bool, what: str) -> None:
@@ -871,6 +882,7 @@ def main() -> int:
     from tpu_cfd_torch.models.fused_conv import _dft2d_constants, fused_pair_wins
     from tpu_cfd_torch.ops import dft2d
     from tpu_cfd_torch.ops.cuda import _build, adam as adam_ops, ffn as ffn_ops
+    from tpu_cfd_torch.ops.cuda import fvm_explicit as fvm_ops
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
     from tpu_cfd_torch.ops.spectral import brick_wall_filter_2d
     from tpu_cfd_torch.solvers import forcings, initial_conditions as ic
@@ -886,11 +898,11 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = ("spectral_step", "spectral_conv", "ffn", "adam")
+    sources = ("spectral_step", "spectral_conv", "ffn", "adam", "fvm_explicit")
     with ThreadPoolExecutor(len(sources)) as pool:
         for name, fut in [(s, pool.submit(_build.build, s, (), True)) for s in sources]:
             print(f"build: {name}.cu -> {fut.result().name}", flush=True)
-    ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib()
+    ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib(), fvm_ops._lib()
     print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -2180,10 +2192,12 @@ def main() -> int:
 
     # -- 13. the FVM solver through the Kolmogorov FVM example --------------
     from tpu_cfd_torch.examples import ex1_kolmogorov_fvm as ex_fvm
+    from tpu_cfd_torch.solvers import fvm
 
     fvm_rows = {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).split(".")[-1]
+        fvm_ops.reset_launch_counts()
         t0 = time.perf_counter()
         fr = ex_fvm.main(["--n", str(FVM_N), "--frames", str(FVM_FRAMES),
                           "--inner-steps", str(FVM_INNER),
@@ -2193,7 +2207,12 @@ def main() -> int:
         finite = bool(np.isfinite(fr["frames"]).all()) and all(
             bool(torch.isfinite(u.data).all()) for u in fr["velocity"])
         fvm_rows[tag] = {"ms_per_step": fr["ms_per_step"], "max_div": fr["max_div"],
-                         "finite": finite, "dt": fr["dt"], "seconds": wall}
+                         "finite": finite, "dt": fr["dt"], "seconds": wall,
+                         "explicit_launches": fvm_ops.LAUNCHES["explicit"]}
+        # the first step, then frames x inner steps, 4 evaluations each
+        _require(fvm_ops.LAUNCHES["explicit"] == 4 * (1 + FVM_FRAMES * FVM_INNER),
+                 f"the explicit-terms kernel launches 4 a step ({tag}): "
+                 f"{fvm_ops.LAUNCHES['explicit']}")
         print(f"phase 13: ex1_kolmogorov_fvm {FVM_N}^2 {tag}, classic RK4 + projection, "
               f"Kolmogorov forcing and drag 0.1, dt {fr['dt']:.6f}, {FVM_FRAMES} frames "
               f"of {FVM_INNER} steps: {fr['ms_per_step']:.3f} ms a step on {card} "
@@ -2219,6 +2238,44 @@ def main() -> int:
     print(f"phase 13: FVM card vs CPU after {FVM_INNER} steps in fp64: max err / max "
           f"{fvm_err:.3e} (tol {FVM_DEVICE_TOL})", flush=True)
     _require(fvm_err < FVM_DEVICE_TOL, "FVM card vs CPU")
+    # the explicit-terms kernel at the benchmark's ensemble, beside its bytes
+    # bound (u and v read, both rates written) and the plain evaluation
+    v, eqn, vdt = ex_fvm.build(FVM_N, torch.float64, dev, batch=FVM_BATCH)
+    eqn(v, vdt)
+    got, want = eqn._explicit_terms(v, vdt), eqn._explicit_terms_plain(v, vdt)
+    kernel_err = max(float((a.data - b.data).abs().max()) for a, b in zip(got, want)) / max(
+        float(b.data.abs().max()) for b in want)
+    _require(kernel_err < FVM_KERNEL_TOL, f"the explicit-terms kernel vs plain: {kernel_err}")
+    fvm_ops.reset_launch_counts()
+    kernel_ms = cuda_ms(lambda: eqn._explicit_terms(v, vdt), 50)
+    _require(fvm_ops.LAUNCHES["explicit"] == 51, "one launch an explicit evaluation")
+    plain_ms = cuda_ms(lambda: eqn._explicit_terms_plain(v, vdt), 3)
+    step_ms = cuda_ms(lambda: eqn(v, vdt), 5)
+    bound_ms = 1e3 * 4 * v[0].data.numel() * 8 / HBM_BYTES_PER_S
+    del v, eqn, got, want
+    # the one-sample step on the kernel's route and on the plain one (any
+    # convect but the module's own takes it), in turns: plain, kernel, kernel, plain
+    v, eqn, vdt = ex_fvm.build(FVM_N, torch.float64, dev)
+    plain_eqn = dataclasses.replace(eqn, convect=functools.partial(fvm.convect))
+    one = {"kernel": [], "plain": []}
+    for route in ("plain", "kernel", "kernel", "plain"):
+        e = eqn if route == "kernel" else plain_eqn
+        e(v, vdt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FVM_INNER):
+            e(v, vdt)
+        torch.cuda.synchronize()
+        one[route].append(1e3 * (time.perf_counter() - t0) / FVM_INNER)
+    fvm_rows["explicit_kernel"] = {
+        "batch": FVM_BATCH, "n": FVM_N, "dtype": "float64", "kernel_ms": kernel_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "plain_ms": plain_ms,
+        "step_ms": step_ms, "rel_err_vs_plain": kernel_err,
+        "one_sample_step_ms": one}
+    print(f"phase 13: explicit-terms kernel at b={FVM_BATCH}, {FVM_N}^2, fp64: "
+          f"{kernel_ms:.4f} ms a launch (bound {bound_ms:.4f} by bytes; plain evaluation "
+          f"{plain_ms:.3f} ms), a step {step_ms:.3f} ms, err/max {kernel_err:.2e}; one "
+          f"sample, ms a step: kernel {one['kernel']}, plain {one['plain']}", flush=True)
 
     # -- 14. main path 9: --data-parallel in both CLIs, world 1 on NCCL -------
     import glob

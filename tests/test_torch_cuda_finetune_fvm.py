@@ -2,9 +2,12 @@
 
 Imports only torch and the port, so it runs where JAX is not installed:
 ``python -m pytest -m cuda tests/test_torch_cuda_finetune_fvm.py`` on a
-machine with a card. Everywhere else each test skips. No hand-written
-kernel runs on these paths: the comparison holds cuFFT and cuBLAS against
-the CPU's libraries. Tolerances, as ``chip_smoke.py`` phases 12 and 13 state
+machine with a card. Everywhere else each test skips. The fine-tune path
+runs no hand-written kernel: there the comparison holds cuFFT and cuBLAS
+against the CPU's libraries. The FVM step runs each explicit evaluation as
+one launch of the hand-written kernel ``ops/cuda/fvm_explicit.py`` and its
+projection on cuFFT, against the CPU's plain PyTorch path and pocketfft.
+Tolerances, as ``chip_smoke.py`` phases 12 and 13 state
 them: ``fine_tune_post``'s fields within 1e-8 of the largest ∂w/∂t (fp64
 roundoff over dt = 1e-6), the residual norm and one Adam step's gradients
 at dt 1e-3 within 1e-8; the FVM velocity after 20 classic-RK4 steps within

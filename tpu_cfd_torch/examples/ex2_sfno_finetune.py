@@ -14,7 +14,7 @@ Counterpart of ``examples/ex2_sfno_finetune.py``, with the same flags plus
    solver step itself.
 
 Runs in fp64 end to end on the card (``torch.fft`` and complex128 einsums:
-no hand-written kernel takes fp64), or on the CPU with ``--no-cuda``.
+no hand-written kernel runs on this path), or on the CPU with ``--no-cuda``.
 Without a card and without ``--no-cuda`` it raises.
 
 Run:

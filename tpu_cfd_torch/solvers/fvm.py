@@ -8,6 +8,12 @@ reduction acts on the grid dims only, so each sample of a batch steps as
 it would alone. The pressure solve is ``solvers/pressure.py``'s (one
 ``torch.fft`` pair when periodic). ``rollout`` steps a batch and records its
 vorticity frames.
+
+On the card, an evaluation of ``NavierStokes2DFVMProjection``'s explicit
+terms with the default Van Leer ``convect`` on periodic MAC-grid fields is
+one launch of the hand-written kernel ``ops/cuda/fvm_explicit.py``
+(``_kernel_takes`` decides); every other evaluation, each on the CPU among
+them, runs the PyTorch code below (``_explicit_terms_plain``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from tpu_cfd_torch import boundaries, grids
 from tpu_cfd_torch.ops import finite_differences as fdm
 from tpu_cfd_torch.ops import interpolation
+from tpu_cfd_torch.ops.cuda import fvm_explicit
 from tpu_cfd_torch.solvers import forcings as forcings_mod
 from tpu_cfd_torch.solvers import pressure
 from tpu_cfd_torch.utils.profiling import trace_annotation
@@ -86,6 +93,11 @@ def advect_van_leer_using_limiters(c: GridVariable, v: GridVariableVector,
     c_interpolation_fn = interpolation.apply_tvd_limiter(
         interpolation.lax_wendroff, limiter=interpolation.van_leer_limiter)
     return advect_general(c, v, interpolation.linear, c_interpolation_fn, dt)
+
+
+# the scheme ops/cuda/fvm_explicit.py implements (NavierStokes2DFVMProjection
+# compares the module's name with it at each call)
+_KERNEL_SCHEME = advect_van_leer_using_limiters
 
 
 def advect_van_leer(c: GridVariable, v: GridVariableVector, dt: float) -> GridArray:
@@ -219,6 +231,15 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
     Spans (``utils.trace_annotation``): ``solver.forward`` around a step,
     ``solver.explicit`` around each evaluation of the explicit terms and
     ``solver.projection`` around each projection.
+
+    Route: where ``_kernel_takes`` holds (CUDA fields and ``_kernel_fits``), an
+    evaluation of the explicit terms is one launch of
+    ``ops/cuda/fvm_explicit.py``, both components at once; elsewhere it is
+    ``_explicit_terms_plain``. The rule reads only what it can observe: the
+    fields' device, dtype and offsets, the BCs, the forcing's arrays, and
+    whether ``convect`` is this module's and the module's
+    ``advect_van_leer_using_limiters`` the scheme the kernel implements, both
+    read at each call.
     """
 
     viscosity: float = 1e-3
@@ -250,7 +271,49 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
                 self.forcing(self.grid, None, dtype=dtype, device=device)))
         return self._forcing
 
+    def _kernel_fits(self, v: GridVariableVector) -> bool:
+        """Whether the kernel computes what ``_explicit_terms_plain`` would, on
+        whatever device: the module's Van Leer ``convect``, two periodic
+        components of one 2-D grid on its MAC offsets, fp32 or fp64 fields of
+        one shape, device and dtype that need no gradient, and no forcing or
+        one ``(n0, n1)`` array a component on the fields' offsets, device and
+        dtype."""
+        if self.convect is not convect or advect_van_leer_using_limiters is not _KERNEL_SCHEME:
+            return False
+        grid = v[0].grid
+        if (len(v) != 2 or grid.ndim != 2 or v[1].grid != grid
+                or tuple(u.offset for u in v) != grid.cell_faces
+                or not boundaries.has_all_periodic_boundary_conditions(*v)):
+            return False
+        a, b = (u.data for u in v)
+        if (a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype
+                or b.device != a.device or a.shape != b.shape
+                or tuple(a.shape[-2:]) != grid.shape
+                or torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+            return False
+        if self.forcing is None:
+            return True
+        return all(f.offset == u.offset and tuple(f.data.shape) == grid.shape
+                   and f.data.dtype == a.dtype and f.data.device == a.device
+                   for f, u in zip(self._forcing_term(a.dtype, a.device), v))
+
+    def _kernel_takes(self, v: GridVariableVector) -> bool:
+        """Whether this evaluation is one launch of ``ops/cuda/fvm_explicit.py``."""
+        return v[0].data.device.type == "cuda" and self._kernel_fits(v)
+
     def _explicit_terms(self, v: GridVariableVector, dt: float) -> GridVariableVector:
+        if not self._kernel_takes(v):
+            return self._explicit_terms_plain(v, dt)
+        forcing = None
+        if self.forcing is not None:
+            forcing = tuple(f.data for f in self._forcing_term(v[0].dtype, v[0].data.device))
+        rates = fvm_explicit.explicit_rates(
+            v[0].data.contiguous(), v[1].data.contiguous(), forcing, v[0].grid.step, dt,
+            self.viscosity, self.density, self.drag)
+        return GridVariableVector(tuple(
+            GridVariable(GridArray(r, u.offset, u.grid), u.bc) for r, u in zip(rates, v)))
+
+    def _explicit_terms_plain(self, v: GridVariableVector, dt: float) -> GridVariableVector:
         dv_dt = self.convect(v, dt)
         dv_dt += diffuse_velocity(v, self.viscosity / self.density)
         if self.forcing is not None:
