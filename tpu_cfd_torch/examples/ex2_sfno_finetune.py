@@ -15,7 +15,11 @@ Counterpart of ``examples/ex2_sfno_finetune.py``, with the same flags plus
 
 Runs in fp64 end to end on the card (``torch.fft`` and complex128 einsums:
 no hand-written kernel runs on this path), or on the CPU with ``--no-cuda``.
-Without a card and without ``--no-cuda`` it raises.
+Without a card and without ``--no-cuda`` it raises. ``main`` builds its
+objects with ``build_sfno``, ``zero_shot``, ``build_outconv``,
+``make_forcing`` and ``residual_norm``, and refines with
+``finetune.finetune_steps``; on a batch the same objects refine one conv on
+the batch-mean residual norm.
 
 Run:
   python -m tpu_cfd_torch.examples.ex2_sfno_finetune --example fno
@@ -54,6 +58,16 @@ CONFIGS = {
 }
 
 
+# the output conv's solver post-process (notebook cell 6), and the enlarged
+# conv's modes and weight learning rate (the flags' defaults)
+FT_KWS = dict(delta=1.0, visc=1e-3, dt=1e-6, bdf_weight=(0.5, 0.5),
+              temporal_padding=True, finetune=True)
+MODES_FT = (64, 64, 6)
+LR_WEIGHT = 1e-4
+# the α of the H⁻¹ residual norm
+RESIDUAL_ALPHA = 10 ** (-3 / 2)
+
+
 def make_forcing(kind: str, n: int, dtype, device) -> torch.Tensor:
     """The data-generation forcing on the eval grid (notebook cell 5)."""
     if kind == "none":
@@ -64,6 +78,45 @@ def make_forcing(kind: str, n: int, dtype, device) -> torch.Tensor:
     return torch.from_numpy(f[None]).to(device=device, dtype=dtype)
 
 
+def build_sfno(cfg: dict) -> SFNO:
+    """The example's SFNO at ``cfg``'s widths (``CONFIGS``), in fp32 on the
+    CPU, with the class-default activation."""
+    return SFNO(
+        modes_x=cfg["modes"], modes_y=cfg["modes"], modes_t=cfg["modes_t"],
+        width=cfg["width"], beta=cfg["beta"], output_steps=cfg["out_steps"],
+    )
+
+
+def zero_shot(model: SFNO, w_in: torch.Tensor, out_steps: int):
+    """The zero-shot pass on ``w_in`` ``(b, n, n, steps)``, no graph kept:
+    ``(prediction (b, n, n, out_steps), the reduced latent "r" that feeds
+    the output conv)``."""
+    with torch.no_grad():
+        pred, latents = forward_with_latents(model, w_in, out_steps=out_steps)
+    return pred, latents["r"]
+
+
+def build_outconv(model: SFNO, cfg: dict, modes_ft=MODES_FT, dtype=torch.float64,
+                  device=None) -> finetune.OutConvFT:
+    """The output conv enlarged to ``modes_ft``, the trained corners of
+    ``model.out_conv`` transplanted in (notebook cell 6)."""
+    return finetune.build_finetune_outconv(
+        model.out_conv.conv, (cfg["modes"], cfg["modes"], cfg["modes_t"]),
+        tuple(modes_ft), out_steps=cfg["out_steps"],
+        generator=torch.Generator().manual_seed(1), dtype=dtype, device=device,
+        diam=cfg["diam"], **FT_KWS,
+    )
+
+
+def residual_norm(n: int, diam: float) -> losses.SobolevLoss:
+    """The α-weighted H⁻¹ norm of the residual, time-averaged, the mean over
+    the batch of each sample's norm."""
+    return losses.SobolevLoss(
+        n_grid=n, norm_order=-1, relative=False, time_average=True,
+        alpha=RESIDUAL_ALPHA, freq_cutoff=n // 2 + 1, diam=diam,
+    )
+
+
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--example", choices=list(CONFIGS), default="fno")
@@ -72,8 +125,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="test-sample index (notebook cell 4/5 uses idx=1/2)")
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--lr-bias", type=float, default=None)
-    p.add_argument("--lr-weight", type=float, default=1e-4)
-    p.add_argument("--modes-ft", type=int, nargs=3, default=(64, 64, 6))
+    p.add_argument("--lr-weight", type=float, default=LR_WEIGHT)
+    p.add_argument("--modes-ft", type=int, nargs=3, default=MODES_FT)
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint path without its .pt suffix")
     p.add_argument("--test-file", type=str, default=None)
@@ -121,10 +174,7 @@ def main(argv=None) -> dict:
     w_in = torch.from_numpy(inp["vorticity"]).to(device)     # (1, n, n, T)
     w_gt = torch.from_numpy(out["vorticity"]).to(device)     # (1, n, n, T_out)
 
-    model = SFNO(
-        modes_x=cfg["modes"], modes_y=cfg["modes"], modes_t=cfg["modes_t"],
-        width=cfg["width"], beta=cfg["beta"], output_steps=T_out,
-    )
+    model = build_sfno(cfg)
     ckpt = args.ckpt or os.path.join(
         pipeline.MODEL_PATH,
         f"sfno_{args.example}_64x64_m{cfg['modes']}_w{cfg['width']}",
@@ -138,32 +188,17 @@ def main(argv=None) -> dict:
         freq_cutoff=n // 2 + 1,
     )
     t0 = time.perf_counter()
-    with torch.no_grad():
-        pred_no, latents = forward_with_latents(model, w_in, out_steps=T_out)
+    pred_no, v_latent = zero_shot(model, w_in, T_out)
     _sync(device)
     zero_shot_ms = 1e3 * (time.perf_counter() - t0)
-    v_latent = latents["r"]
-    zero_shot = float(l2_rel(pred_no, w_gt))
-    print(f"zero-shot rel L2 at {n}x{n}: {zero_shot:.5e}")
+    zero_shot_l2 = float(l2_rel(pred_no, w_gt))
+    print(f"zero-shot rel L2 at {n}x{n}: {zero_shot_l2:.5e}")
 
     # enlarged output conv, trained corners transplanted (notebook cell 6)
-    ft_kws = dict(
-        delta=1.0, diam=diam, visc=1e-3, dt=1e-6, bdf_weight=(0.5, 0.5),
-        temporal_padding=True, finetune=True,
-    )
-    qft = finetune.build_finetune_outconv(
-        model.out_conv.conv, (cfg["modes"], cfg["modes"], cfg["modes_t"]),
-        tuple(args.modes_ft), out_steps=T_out,
-        generator=torch.Generator().manual_seed(1), dtype=dtype, device=device,
-        **ft_kws,
-    )
-
-    res_hm1 = losses.SobolevLoss(
-        n_grid=n, norm_order=-1, relative=False, time_average=True,
-        alpha=10 ** (-3 / 2), freq_cutoff=n // 2 + 1, diam=diam,
-    )
+    qft = build_outconv(model, cfg, args.modes_ft, dtype, device)
+    res_hm1 = residual_norm(n, diam)
     f = make_forcing(cfg["forcing"], n, dtype, device)
-    result = {"zero_shot_rel_l2": zero_shot, "zero_shot_ms": zero_shot_ms,
+    result = {"zero_shot_rel_l2": zero_shot_l2, "zero_shot_ms": zero_shot_ms,
               "gt_floor": None, "gt_floor_ms": None}
 
     if args.gt_floor:
@@ -173,8 +208,8 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         with torch.no_grad():
             gt_out = finetune.fine_tune_post(
-                w_gt, f, visc=ft_kws["visc"], dt=ft_kws["dt"],
-                diam=diam, bdf_weight=ft_kws["bdf_weight"],
+                w_gt, f, visc=FT_KWS["visc"], dt=FT_KWS["dt"],
+                diam=diam, bdf_weight=FT_KWS["bdf_weight"],
             )
             result["gt_floor"] = float(res_hm1(gt_out["residual"]))
         result["gt_floor_ms"] = 1e3 * (time.perf_counter() - t0)
@@ -192,10 +227,8 @@ def main(argv=None) -> dict:
         return {"l2_vs_gt": l2_rel(o["w"], w_gt), "l2_vs_noft": l2_rel(o["w"], pred_no)}
 
     hist = finetune.finetune_steps(
-        qft, v_latent, w_in, f, out_steps=T_out, n_steps=iters,
-        lr=args.lr_weight, lr_bias=lr_bias, residual_norm=res_hm1, track=track,
-        lr_decay=args.lr_decay,
-    )
+        qft, v_latent, w_in, f, out_steps=T_out, n_steps=iters, lr=args.lr_weight,
+        lr_bias=lr_bias, residual_norm=res_hm1, track=track, lr_decay=args.lr_decay)
     for i, h in enumerate(hist):
         if i % 10 == 0 or i == len(hist) - 1:
             print(

@@ -13,11 +13,18 @@ is given; with a ``mesh`` it is data-parallel (the latents sharded on
 hand-written kernel runs here: ``SpectralConvT`` takes its
 DFT einsums or ``torch.fft`` in any dtype, and the examples' fine-tune runs
 in fp64.
+
+Spans (``utils.trace_annotation``): ``ft.forward`` around ``OutConvFT``'s
+conv, ``ft.post`` around ``fine_tune_post``, and in each ``finetune_steps``
+iteration ``ft.backward`` (autograd, and the gradients' average under a
+mesh), ``ft.record`` (the loss's history entry, ``track``, the keep-best
+copy) and ``ft.optimizer`` (Adam and the schedule). ``COUNTS`` counts the
+iterations (Adam updates) and the keep-best copies (the latter when a
+``finetune_steps`` call ends); ``reset_counts`` sets them to zero.
 """
 
 from __future__ import annotations
 
-import copy
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -28,8 +35,16 @@ import torch.nn as nn
 from tpu_cfd_torch.models.sfno import OutConv, SpectralConvT
 from tpu_cfd_torch.solvers import trajectories
 from tpu_cfd_torch.train.losses import BochnerNorm
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Tensor = torch.Tensor
+
+COUNTS = {"iterations": 0, "best_copies": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 class OutConvFT(nn.Module):
@@ -67,10 +82,16 @@ class OutConvFT(nn.Module):
     def forward(self, v: Tensor, v_res: Tensor, f: Optional[Tensor] = None,
                 out_steps: Optional[int] = None, original: bool = False):
         out_steps = out_steps if out_steps is not None else self.out_steps
-        v = self.out_conv(v, v_res, out_steps=out_steps)
+        with trace_annotation("ft.forward"):
+            v = self.out_conv(v, v_res, out_steps=out_steps)
         if not self.finetune or original:
             return v
-        return fine_tune_post(v, f, visc=self.visc, dt=self.dt, diam=self.diam,
+        return self.post(v, f)
+
+    def post(self, w: Tensor, f: Optional[Tensor]) -> Dict[str, Tensor]:
+        """``fine_tune_post`` of a trajectory ``w`` under this module's
+        solver settings."""
+        return fine_tune_post(w, f, visc=self.visc, dt=self.dt, diam=self.diam,
                               bdf_weight=self.bdf_weight, dealias=self.dealias,
                               norm=self.norm)
 
@@ -97,24 +118,25 @@ def fine_tune_post(w: Tensor, f: Optional[Tensor], visc: float = 1e-3,
     """``{w, w_t, residual}`` of a trajectory ``w`` ``(b, x, y, t)``: each
     time slice to rfft2 space, one CN step each way for the derivative, the
     spectral residual, and back; differentiable."""
-    b, nx, ny, _ = w.shape
-    w_tfirst = torch.movedim(w, -1, 1)  # (b, t, x, y)
-    if f is None:
-        f = torch.zeros((b, nx, ny), dtype=w.dtype, device=w.device)
-    w_h = torch.fft.rfftn(w_tfirst, s=(nx, ny), dim=(-2, -1), norm=norm)
-    f_h = torch.fft.rfftn(f, s=(nx, ny), dim=(-2, -1), norm=norm)[:, None]
+    with trace_annotation("ft.post"):
+        b, nx, ny, _ = w.shape
+        w_tfirst = torch.movedim(w, -1, 1)  # (b, t, x, y)
+        if f is None:
+            f = torch.zeros((b, nx, ny), dtype=w.dtype, device=w.device)
+        w_h = torch.fft.rfftn(w_tfirst, s=(nx, ny), dim=(-2, -1), norm=norm)
+        f_h = torch.fft.rfftn(f, s=(nx, ny), dim=(-2, -1), norm=norm)[:, None]
 
-    rfftmesh = trajectories.default_rfft_mesh(nx, diam, dtype=w.dtype, device=w.device)
-    laplacian = trajectories.spectral_laplacian_guarded(rfftmesh)
-    dealias_filter = trajectories.default_dealias_filter(*rfftmesh, nx)
-    solver_kws = dict(visc=visc, rfftmesh=rfftmesh, laplacian=laplacian,
-                      dealias_filter=dealias_filter, dealias=dealias)
-    w_h, w_h_t = get_temporal_derivative(w_h, f_h, dt, weight=bdf_weight, **solver_kws)
-    res_h = trajectories.update_residual(w_h, w_h_t, f_h, **solver_kws)
-    w_out, w_t, res = (
-        torch.movedim(torch.fft.irfftn(z, s=(nx, ny), dim=(-2, -1), norm=norm), 1, -1)
-        for z in (w_h, w_h_t, res_h))
-    return dict(w=w_out, w_t=w_t, residual=res)
+        rfftmesh = trajectories.default_rfft_mesh(nx, diam, dtype=w.dtype, device=w.device)
+        laplacian = trajectories.spectral_laplacian_guarded(rfftmesh)
+        dealias_filter = trajectories.default_dealias_filter(*rfftmesh, nx)
+        solver_kws = dict(visc=visc, rfftmesh=rfftmesh, laplacian=laplacian,
+                          dealias_filter=dealias_filter, dealias=dealias)
+        w_h, w_h_t = get_temporal_derivative(w_h, f_h, dt, weight=bdf_weight, **solver_kws)
+        res_h = trajectories.update_residual(w_h, w_h_t, f_h, **solver_kws)
+        w_out, w_t, res = (
+            torch.movedim(torch.fft.irfftn(z, s=(nx, ny), dim=(-2, -1), norm=norm), 1, -1)
+            for z in (w_h, w_h_t, res_h))
+        return dict(w=w_out, w_t=w_t, residual=res)
 
 
 @torch.no_grad()
@@ -197,6 +219,13 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
     (a copy taken when they were): the Adam tail is non-monotonic at the
     discretization floor. Otherwise the model keeps its last parameters.
 
+    The loop never waits for the device: each entry of the history stays a
+    device scalar and the keep-best copy is a select on the device (the
+    iterate's parameters where its residual is below the best so far), so
+    the host queues the next iteration while the card runs this one. The
+    history comes to the host once, after the loop, with the keep-best
+    decision on the last evaluation.
+
     With a ``mesh`` (``parallel.make_mesh``), data parallelism as the JAX
     function's under a mesh: ``v_latent``, ``v_res`` (and a per-sample ``f``)
     are the rank's shards on ``data`` (``parallel.shard_batch``) and the
@@ -216,13 +245,13 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda k: lr_decay ** (k / n_steps))
 
-    def over_data(t) -> float:
+    def over_data(t) -> Tensor:
         t = torch.as_tensor(t, device=v_res.device).detach()
         if mesh is None:
-            return float(t)
+            return t
         from tpu_cfd_torch.parallel import mean_over
 
-        return float(mean_over(t, mesh))
+        return mean_over(t, mesh)
 
     def record(loss: Tensor, out) -> None:
         value = over_data(loss)
@@ -235,30 +264,59 @@ def finetune_steps(model: OutConvFT, v_latent: Tensor, v_res: Tensor,
                             **{k: over_data(v) for k, v in extras.items()}})
 
     history: List = []
-    best_loss, best_state = math.inf, None
+    best_loss = torch.full((), math.inf, dtype=torch.float64, device=v_res.device)
+    best_state = copies = None
+    if keep_best:
+        best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        copies = torch.zeros((), dtype=torch.int64, device=v_res.device)
     for _ in range(n_steps):
         opt.zero_grad(set_to_none=True)
         out = model(v_latent, v_res, f, out_steps=out_steps)
         loss = residual_norm(out["residual"])
-        loss.backward()
-        if mesh is not None:
-            from tpu_cfd_torch.parallel import average_gradients
+        with trace_annotation("ft.backward"):
+            loss.backward()
+            if mesh is not None:
+                from tpu_cfd_torch.parallel import average_gradients
 
-            average_gradients(model.parameters(), mesh)
-        record(loss, out)
-        if keep_best and history_residual(history[-1]) < best_loss:
-            best_loss = history_residual(history[-1])
-            best_state = copy.deepcopy(model.state_dict())
-        opt.step()
-        if sched is not None:
-            sched.step()
+                average_gradients(model.parameters(), mesh)
+        with trace_annotation("ft.record"):
+            record(loss, out)
+            if keep_best:
+                with torch.no_grad():
+                    value = history_residual(history[-1]).to(best_loss)
+                    better = value < best_loss
+                    best_loss = torch.where(better, value, best_loss)
+                    for k, v in model.state_dict().items():
+                        best_state[k].copy_(torch.where(better, v, best_state[k]))
+                    copies += better
+        with trace_annotation("ft.optimizer"):
+            opt.step()
+            if sched is not None:
+                sched.step()
+        COUNTS["iterations"] += 1
     if keep_best:
         with torch.no_grad():
             out = model(v_latent, v_res, f, out_steps=out_steps)
-            record(residual_norm(out["residual"]), out)
-        if history_residual(history[-1]) >= best_loss:
+            with trace_annotation("ft.record"):
+                record(residual_norm(out["residual"]), out)
+    history = _to_host(history)
+    if keep_best:
+        COUNTS["best_copies"] += int(copies)
+        if history_residual(history[-1]) >= float(best_loss):
             model.load_state_dict(best_state)
     return history
+
+
+def _to_host(history: List) -> List:
+    """The history's device scalars as floats, in one copy to the host."""
+    if not history:
+        return history
+    keys = list(history[0]) if isinstance(history[0], dict) else None
+    rows = [[h[k] for k in keys] if keys else [h] for h in history]
+    values = torch.stack([t.to(torch.float64) for row in rows for t in row]).tolist()
+    width = len(rows[0])
+    rows = [values[i: i + width] for i in range(0, len(values), width)]
+    return [dict(zip(keys, row)) if keys else row[0] for row in rows]
 
 
 def history_residual(entry) -> float:
