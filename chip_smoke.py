@@ -72,7 +72,10 @@ printing no result, when either is missing or any phase fails:
    fused Galerkin kernels did the stepping (each counter ``steps × 5``),
    that the initial condition on the card (``filtered_velocity_field`` at
    256², b=8, fp32) is divergence-free to 1e-4 with each sample's maximum
-   speed 5 to 1e-5, holds the fused Galerkin rollout from the curl of that
+   speed 5 to 1e-5, that its three projections, there and in each of the
+   CLI's batches, took ``ops/cuda/fvm_projection.py``'s divergence and
+   gradient kernels (3 launches of each a call, by count), holds the fused
+   Galerkin rollout from the curl of that
    IC against its plain version over 10 steps at the CLI's constants
    (viscosity 1e-3, drag 0.1, Kolmogorov forcing), and prints its
    sample-steps/s and the rollout's alone (median of five calls, range);
@@ -113,11 +116,17 @@ printing no result, when either is missing or any phase fails:
    and divergence-free (1e-12 in fp64, 1e-4 in fp32), holds the card
    against the CPU after 20 fp64 steps from the example's IC
    (``FVM_DEVICE_TOL``), and prints the ms a step. Each explicit evaluation
-   is one launch of ``ops/cuda/fvm_explicit.py`` (4 a step, by count); at
-   the benchmark's shape, b=512, 128², fp64, it holds that kernel against
-   the plain evaluation within ``FVM_KERNEL_TOL`` and times both by CUDA
-   events beside the kernel's bytes bound, and it times the one-sample step
-   on both routes in turns;
+   is one launch of ``ops/cuda/fvm_explicit.py``, and each RK combination,
+   projection divergence and gradient subtraction one launch of
+   ``ops/cuda/fvm_projection.py`` (4 of each a step, by count, and the IC's
+   three projections); at the benchmark's shape, b=512, 128², fp64, it
+   holds the explicit kernel against the plain evaluation within
+   ``FVM_KERNEL_TOL`` and times both by CUDA events beside the kernel's
+   bytes bound, times a step (CUDA events) and counts its launches (the
+   profiler, where the trace kept the port's 16 launches a step), gives each projection kernel's device time beside its bytes bound and
+   requires its output to equal its plain version's on the card to the bit
+   (``combine`` with 1 and 4 terms), and times the one-sample step on both
+   routes in turns;
 14. drives main path 9, ``--data-parallel`` in both CLIs: ``generate
    mcwilliams`` at 256² → 64², 64 samples, b=32, 100 + 100 steps (100
    records), and ``train`` with phase 6's arguments, once in this process
@@ -351,6 +360,27 @@ def device_ms(fn, kernel: str, iters: int = 20, sessions: int = 3):
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_count(n) -> str:
+    return "not measured" if n is None else f"{n:.1f}"
+
+
+def port_kernel_names() -> tuple:
+    """The names of the ``__global__`` kernels in the port's CUDA sources
+    (``tpu_cfd_torch/ops/cuda/csrc/*.cu``), which the profiler's kernel
+    names hold."""
+    import glob
+    import re
+
+    names = set()
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tpu_cfd_torch", "ops", "cuda", "csrc")
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", f.read()))
+    return tuple(sorted(names))
 
 
 def step_profile(fn) -> dict:
@@ -883,6 +913,7 @@ def main() -> int:
     from tpu_cfd_torch.ops import dft2d
     from tpu_cfd_torch.ops.cuda import _build, adam as adam_ops, ffn as ffn_ops
     from tpu_cfd_torch.ops.cuda import fvm_explicit as fvm_ops
+    from tpu_cfd_torch.ops.cuda import fvm_projection as proj_ops
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
     from tpu_cfd_torch.ops.spectral import brick_wall_filter_2d
     from tpu_cfd_torch.solvers import forcings, initial_conditions as ic
@@ -898,11 +929,12 @@ def main() -> int:
 
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    sources = ("spectral_step", "spectral_conv", "ffn", "adam", "fvm_explicit")
+    sources = ("spectral_step", "spectral_conv", "ffn", "adam", "fvm_explicit",
+               "fvm_projection")
     with ThreadPoolExecutor(len(sources)) as pool:
         for name, fut in [(s, pool.submit(_build.build, s, (), True)) for s in sources]:
             print(f"build: {name}.cu -> {fut.result().name}", flush=True)
-    ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib(), fvm_ops._lib()
+    ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib(), fvm_ops._lib(), proj_ops._lib()
     print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -1567,26 +1599,36 @@ def main() -> int:
               f"{lib[f'dft_{layout}']:.4f}, torch.fft {lib['fft']:.4f} ms/step", flush=True)
         rollouts.append(row)
 
+    port_kernels = port_kernel_names()
+
     def profile_steps(route, fn, steps: int) -> dict:
-        """torch.profiler over ``steps`` calls: device busy share, top kernels."""
+        """torch.profiler over ``steps`` calls: device busy share, top kernels,
+        the port's own kernels' time and launches. One call under a warming
+        profiler comes first and is left out: a fresh trace loses its first
+        few launches (late in this script, about four)."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
 
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+            prof.step()
+        # the program's spans (utils.trace_annotation) show on the device's
+        # timeline as user annotations: not kernels, and they overlap them
+        kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)),
                       key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-        ours = sum(e.self_device_time_total for e in kern
-                   if any(k in e.key for k in ("bgemm_kernel", "modes_fused_kernel",
-                                               "inverse_fused_kernel", "ffn_kernel",
-                                               "adam_multi_kernel"))
-                   ) / 1e3 / steps
+        mine = [e for e in kern if any(k in e.key for k in port_kernels)]
+        ours = sum(e.self_device_time_total for e in mine) / 1e3 / steps
         top = [(e.key[:90], e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in kern[:12]]
         print(f"profile {route}: device busy {busy_ms:.3f} of {wall_ms:.3f} ms/step "
@@ -1596,8 +1638,9 @@ def main() -> int:
             print(f"profile {route}:   {ms_:8.3f} ms/step  x{count:5.1f}  {name}",
                   flush=True)
         return {"busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
-                "sfno_kernels_ms_per_step": ours,
-                "launches_per_step": sum(e.count for e in kern) / steps}
+                "port_kernels_ms_per_step": ours,
+                "launches_per_step": sum(e.count for e in kern) / steps,
+                "port_launches_per_step": sum(e.count for e in mine) / steps}
 
     # the SFNO train step at the recipe, three routes, same parameters
     with np.load(data_path) as z:
@@ -1836,8 +1879,14 @@ def main() -> int:
     noise = torch.stack([torch.randn((2, N, N), device=dev,
                                      generator=ic.sample_generator(0, i, dev))
                          for i in range(kbatch)])
+    # the IC's three projections take ops/cuda/fvm_projection.py's divergence
+    # and gradient kernels around the cuFFT solve, in fp32 at 256^2
+    ic_projections = {"combine": 0, "divergence": 3, "subtract_gradient": 3}
+    proj_ops.reset_launch_counts()
     vel = ic.filtered_velocity_field(kgrid, maximum_velocity=5.0, peak_wavenumber=4,
                                      noise=noise)
+    _require(proj_ops.LAUNCHES == ic_projections,
+             f"the kolmogorov IC projects on the kernels, 3 a call: {proj_ops.LAUNCHES}")
     div = float(fdm.divergence(vel).data.abs().max())
     speed = torch.linalg.vector_norm(torch.stack([u.data for u in vel]), dim=0)
     vmax_err = float(((speed.amax(dim=(-2, -1)) - 5.0).abs() / 5.0).max())
@@ -1850,11 +1899,13 @@ def main() -> int:
              "--num-samples", str(ksamples), "--time", "0.4", "--time-warmup", "0.1",
              "--dt", str(DT), "--num-steps", "30", "--filepath", tmp]
     ss.reset_launch_counts()
+    proj_ops.reset_launch_counts()
     t0 = time.perf_counter()
     kpath = generate.main_kolmogorov(kargv)
     torch.cuda.synchronize()
     kwall = time.perf_counter() - t0
     kol_launches = dict(ss.LAUNCHES)
+    kol_ic_launches = dict(proj_ops.LAUNCHES)
     with np.load(kpath) as z:
         kvort = z["vorticity"]
     with open(kpath + ".meta.json") as f:
@@ -1863,7 +1914,8 @@ def main() -> int:
     kol_rate = kbatch * ksteps / kwall
     print(f"main path 5: kolmogorov 256^2->64^2, {ksamples} samples b{kbatch}, "
           f"{ksteps} steps in {kwall:.2f} s: {kol_rate:.1f} sample-steps/s with the "
-          f"IC and the recorder, launches {kol_launches}, fft_impl "
+          f"IC and the recorder, launches {kol_launches}, the IC's projection "
+          f"launches {kol_ic_launches}, fft_impl "
           f"{kmeta['fft_impl']}, records {kvort.shape}", flush=True)
     _require(kvort.shape == (ksamples, 30, 64, 64), f"kolmogorov shape {kvort.shape}")
     _require(bool(np.isfinite(kvort).all()), "finite kolmogorov dataset")
@@ -1871,6 +1923,8 @@ def main() -> int:
     for key in ("inverse_first", "advect", "forward_first"):
         _require(kol_launches[key] == ksteps * 5, f"kolmogorov: {key} launched "
                  f"{kol_launches[key]} times, expected {ksteps * 5}")
+    _require(kol_ic_launches == {k: n * (ksamples // kbatch) for k, n in ic_projections.items()},
+             f"kolmogorov: the IC's projections launch 3 of each a batch: {kol_ic_launches}")
 
     # the fused Galerkin rollout at this path's batch and constants (the CLI's
     # solver, rebuilt from its meta file), from the curl of the IC above as
@@ -2198,6 +2252,7 @@ def main() -> int:
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).split(".")[-1]
         fvm_ops.reset_launch_counts()
+        proj_ops.reset_launch_counts()
         t0 = time.perf_counter()
         fr = ex_fvm.main(["--n", str(FVM_N), "--frames", str(FVM_FRAMES),
                           "--inner-steps", str(FVM_INNER),
@@ -2208,11 +2263,19 @@ def main() -> int:
             bool(torch.isfinite(u.data).all()) for u in fr["velocity"])
         fvm_rows[tag] = {"ms_per_step": fr["ms_per_step"], "max_div": fr["max_div"],
                          "finite": finite, "dt": fr["dt"], "seconds": wall,
-                         "explicit_launches": fvm_ops.LAUNCHES["explicit"]}
-        # the first step, then frames x inner steps, 4 evaluations each
-        _require(fvm_ops.LAUNCHES["explicit"] == 4 * (1 + FVM_FRAMES * FVM_INNER),
+                         "explicit_launches": fvm_ops.LAUNCHES["explicit"],
+                         "projection_launches": dict(proj_ops.LAUNCHES)}
+        # the first step, then frames x inner steps, 4 evaluations each; four
+        # combinations and projections a step, and the IC's three projections
+        fvm_steps = 1 + FVM_FRAMES * FVM_INNER
+        _require(fvm_ops.LAUNCHES["explicit"] == 4 * fvm_steps,
                  f"the explicit-terms kernel launches 4 a step ({tag}): "
                  f"{fvm_ops.LAUNCHES['explicit']}")
+        _require(proj_ops.LAUNCHES == {"combine": 4 * fvm_steps,
+                                       "divergence": 4 * fvm_steps + 3,
+                                       "subtract_gradient": 4 * fvm_steps + 3},
+                 f"the projection kernels launch 4 of each a step ({tag}): "
+                 f"{proj_ops.LAUNCHES}")
         print(f"phase 13: ex1_kolmogorov_fvm {FVM_N}^2 {tag}, classic RK4 + projection, "
               f"Kolmogorov forcing and drag 0.1, dt {fr['dt']:.6f}, {FVM_FRAMES} frames "
               f"of {FVM_INNER} steps: {fr['ms_per_step']:.3f} ms a step on {card} "
@@ -2250,9 +2313,56 @@ def main() -> int:
     kernel_ms = cuda_ms(lambda: eqn._explicit_terms(v, vdt), 50)
     _require(fvm_ops.LAUNCHES["explicit"] == 51, "one launch an explicit evaluation")
     plain_ms = cuda_ms(lambda: eqn._explicit_terms_plain(v, vdt), 3)
+    fvm_ops.reset_launch_counts()
+    proj_ops.reset_launch_counts()
+    eqn(v, vdt)
+    _require(fvm_ops.LAUNCHES["explicit"] == 4 and proj_ops.LAUNCHES == dict.fromkeys(
+        proj_ops.LAUNCHES, 4), f"4 launches of each FVM kernel a step at b={FVM_BATCH}: "
+        f"{fvm_ops.LAUNCHES}, {proj_ops.LAUNCHES}")
     step_ms = cuda_ms(lambda: eqn(v, vdt), 5)
-    bound_ms = 1e3 * 4 * v[0].data.numel() * 8 / HBM_BYTES_PER_S
-    del v, eqn, got, want
+    # the step's launches, where the trace kept each of the port's 16 a step
+    step_prof = profile_steps(f"FVM step b={FVM_BATCH}", lambda: eqn(v, vdt), 3)
+    step_launches = (step_prof["launches_per_step"]
+                     if step_prof["port_launches_per_step"] == 16 else None)
+    field_ms = 1e3 * v[0].data.numel() * 8 / HBM_BYTES_PER_S  # one fp64 field's pass
+    bound_ms = 4 * field_ms
+    # the projection's kernels at the step's shapes, by device time (the
+    # profiler), each beside its bytes bound: fields read and written once
+    u, w = (c.data for c in v)
+    k = eqn._explicit_terms(v, vdt)
+    ks = [(vdt / 6, tuple(c.data + j for c in k)) for j in range(4)]  # four distinct rates
+    q = eqn._projection.solver(proj_ops.divergence(u, w, v[0].grid.step))
+    h = v[0].grid.step
+    # each: the wrapper, its plain version (any device), fields moved
+    proj_cases = {
+        "combine_1": (lambda: proj_ops.combine((u, w), ks[:1]),
+                      lambda: proj_ops._combine_plain((u, w), ks[:1]), 6),
+        "combine_4": (lambda: proj_ops.combine((u, w), ks),
+                      lambda: proj_ops._combine_plain((u, w), ks), 12),
+        "divergence": (lambda: proj_ops.divergence(u, w, h),
+                       lambda: proj_ops._divergence_plain(u, w, h), 3),
+        "subtract_gradient": (lambda: proj_ops.subtract_gradient(u, w, q, h),
+                              lambda: proj_ops._subtract_gradient_plain(u, w, q, h), 5),
+    }
+    proj_rows = {}
+    for name, (fn, plain, fields) in proj_cases.items():
+        kernel = name.split("_")[0] if name.startswith("combine") else name
+        ms_ = device_ms(fn, f"{kernel}_kernel")
+        # the kernel and the same arithmetic in PyTorch, on the card: the same
+        # rounded operations in the same order, so equal to the bit
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want)) / max(
+            float(b.abs().max()) for b in want)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        proj_rows[name] = {"device_ms": ms_, "bound_ms": fields * field_ms,
+                           "fields": fields, "rel_err_vs_plain": err, "equal": equal}
+        print(f"phase 13: {name} kernel at b={FVM_BATCH}, {FVM_N}^2, fp64 on {card}: "
+              f"{fmt_ms(ms_)} ms device (bound {fields * field_ms:.4f} by bytes, {fields} "
+              f"fields); against its plain version on the card err/max {err:.2e}, "
+              f"equal {equal}", flush=True)
+        _require(equal, f"the {name} kernel vs its plain version at b={FVM_BATCH}: {err}")
+    del v, eqn, got, want, u, w, k, ks, q
     # the one-sample step on the kernel's route and on the plain one (any
     # convect but the module's own takes it), in turns: plain, kernel, kernel, plain
     v, eqn, vdt = ex_fvm.build(FVM_N, torch.float64, dev)
@@ -2270,11 +2380,13 @@ def main() -> int:
     fvm_rows["explicit_kernel"] = {
         "batch": FVM_BATCH, "n": FVM_N, "dtype": "float64", "kernel_ms": kernel_ms,
         "bound_ms": bound_ms, "bound_by": "bytes", "plain_ms": plain_ms,
-        "step_ms": step_ms, "rel_err_vs_plain": kernel_err,
-        "one_sample_step_ms": one}
-    print(f"phase 13: explicit-terms kernel at b={FVM_BATCH}, {FVM_N}^2, fp64: "
+        "step_ms": step_ms, "launches_per_step": step_launches,
+        "step_busy_ms": step_prof["busy_ms_per_step"], "rel_err_vs_plain": kernel_err,
+        "projection_kernels": proj_rows, "one_sample_step_ms": one}
+    print(f"phase 13: explicit-terms kernel at b={FVM_BATCH}, {FVM_N}^2, fp64 on {card}: "
           f"{kernel_ms:.4f} ms a launch (bound {bound_ms:.4f} by bytes; plain evaluation "
-          f"{plain_ms:.3f} ms), a step {step_ms:.3f} ms, err/max {kernel_err:.2e}; one "
+          f"{plain_ms:.3f} ms), a step {step_ms:.3f} ms and "
+          f"{fmt_count(step_launches)} launches, err/max {kernel_err:.2e}; one "
           f"sample, ms a step: kernel {one['kernel']}, plain {one['plain']}", flush=True)
 
     # -- 14. main path 9: --data-parallel in both CLIs, world 1 on NCCL -------

@@ -9,11 +9,19 @@ it would alone. The pressure solve is ``solvers/pressure.py``'s (one
 ``torch.fft`` pair when periodic). ``rollout`` steps a batch and records its
 vorticity frames.
 
-On the card, an evaluation of ``NavierStokes2DFVMProjection``'s explicit
-terms with the default Van Leer ``convect`` on periodic MAC-grid fields is
-one launch of the hand-written kernel ``ops/cuda/fvm_explicit.py``
-(``_kernel_takes`` decides); every other evaluation, each on the CPU among
-them, runs the PyTorch code below (``_explicit_terms_plain``).
+Two routes for each part of a step. For two periodic components on the
+MAC offsets of a 2-D grid, fp32 or fp64, needing no gradient
+(``fvm_projection.fits_mac_kernels``), the step's field passes are
+hand-written kernels on the card: an evaluation of
+``NavierStokes2DFVMProjection``'s explicit terms with the default Van Leer
+``convect`` is one launch of ``ops/cuda/fvm_explicit.py`` (``_kernel_takes``
+decides; elsewhere ``_explicit_terms_plain``), each of ``RKStepper``'s stage
+states and its result one launch of ``ops/cuda/fvm_projection.py``'s
+``combine``, and a projection that module's divergence and gradient around
+the cuFFT solve (``solvers/pressure.py``). On the CPU the combination and
+the projection's stencils take the same wrappers, which run their plain
+versions there, bit for bit the term loop and the stencils that every
+other step runs.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch
 from tpu_cfd_torch import boundaries, grids
 from tpu_cfd_torch.ops import finite_differences as fdm
 from tpu_cfd_torch.ops import interpolation
-from tpu_cfd_torch.ops.cuda import fvm_explicit
+from tpu_cfd_torch.ops.cuda import fvm_explicit, fvm_projection
 from tpu_cfd_torch.solvers import forcings as forcings_mod
 from tpu_cfd_torch.solvers import pressure
 from tpu_cfd_torch.utils.profiling import trace_annotation
@@ -205,16 +213,28 @@ class RKStepper:
         k = [None] * num_steps
         k[0] = equation.explicit_terms(u0, dt)
         for i in range(1, num_steps):
-            u_star = u0
-            for j in range(i):
-                if a[i - 1][j] != 0:
-                    u_star = u_star + dt * a[i - 1][j] * k[j]
+            u_star = _combination(u0, [(dt * a[i - 1][j], k[j])
+                                       for j in range(i) if a[i - 1][j] != 0])
             k[i] = equation.explicit_terms(equation.pressure_projection(u_star), dt)
-        u_star = u0
-        for j in range(num_steps):
-            if b[j] != 0:
-                u_star = u_star + dt * b[j] * k[j]
+        u_star = _combination(u0, [(dt * b[j], k[j]) for j in range(num_steps) if b[j] != 0])
         return equation.pressure_projection(u_star)
+
+
+def _combination(u0: GridVariableVector, terms) -> GridVariableVector:
+    """``u0 + c1 k1 + c2 k2 + ...`` over ``terms`` ``(c, k)``, summed in
+    order: ``ops/cuda/fvm_projection.py``'s ``combine`` (one launch on the
+    card) where the fields ``fits_mac_kernels``, else term by term."""
+    ks = [kj for _, kj in terms]
+    if 0 < len(terms) <= fvm_projection.MAX_TERMS and fvm_projection.fits_mac_kernels(u0, *ks):
+        out = fvm_projection.combine(
+            tuple(c.data.contiguous() for c in u0),
+            [(coef, tuple(c.data.contiguous() for c in kj)) for coef, kj in terms])
+        return GridVariableVector(tuple(
+            GridVariable(GridArray(d, c.offset, c.grid), c.bc) for d, c in zip(out, u0)))
+    u_star = u0
+    for coef, kj in terms:
+        u_star = u_star + coef * kj
+    return u_star
 
 
 @dataclasses.dataclass
@@ -239,7 +259,14 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
     fields' device, dtype and offsets, the BCs, the forcing's arrays, and
     whether ``convect`` is this module's and the module's
     ``advect_van_leer_using_limiters`` the scheme the kernel implements, both
-    read at each call.
+    read at each call. A projection takes ``ops/cuda/fvm_projection.py``'s
+    divergence and gradient around its solve where
+    ``PressureProjection._kernel_fits`` holds (fields that
+    ``fvm_projection.fits_mac_kernels``, the ``rfft`` solve in the fields'
+    dtype), and the RK combination its ``combine`` where the state and the
+    rates ``fits_mac_kernels``: kernels on the card, their plain versions
+    on the CPU. Walls, an odd n1, other offsets or dtypes and a gradient
+    take the plain stencils and the combination term by term.
     """
 
     viscosity: float = 1e-3
@@ -280,20 +307,12 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
         dtype."""
         if self.convect is not convect or advect_van_leer_using_limiters is not _KERNEL_SCHEME:
             return False
-        grid = v[0].grid
-        if (len(v) != 2 or grid.ndim != 2 or v[1].grid != grid
-                or tuple(u.offset for u in v) != grid.cell_faces
-                or not boundaries.has_all_periodic_boundary_conditions(*v)):
-            return False
-        a, b = (u.data for u in v)
-        if (a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype
-                or b.device != a.device or a.shape != b.shape
-                or tuple(a.shape[-2:]) != grid.shape
-                or torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        if not fvm_projection.fits_mac_kernels(v):
             return False
         if self.forcing is None:
             return True
-        return all(f.offset == u.offset and tuple(f.data.shape) == grid.shape
+        a = v[0].data
+        return all(f.offset == u.offset and tuple(f.data.shape) == v[0].grid.shape
                    and f.data.dtype == a.dtype and f.data.device == a.device
                    for f, u in zip(self._forcing_term(a.dtype, a.device), v))
 

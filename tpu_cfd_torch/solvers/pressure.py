@@ -7,6 +7,16 @@ package projects one sample under ``vmap``, these take a batch
 ``(b, *grid.shape)`` directly: every reduction runs over the grid dims only.
 The solve is one ``torch.fft`` pair (periodic) or a pair of eigenvector
 rotations by ``torch.matmul`` (walls).
+
+Two routes for a projection (``PressureProjection._kernel_fits`` decides).
+For two periodic components on the MAC offsets of a 2-D grid whose solve is
+the ``rfft`` pair, in fp32 or fp64 and needing no gradient, the divergence
+and the gradient's subtraction are ``ops/cuda/fvm_projection.py``'s, around
+the unchanged solve: one kernel launch each on the card, their plain
+versions, bit for bit the stencils of ``ops/finite_differences.py``, on the
+CPU. Under periodic BCs imposing them leaves every value as it is, so this
+route skips it. Every other projection runs those stencils and imposes the
+BCs.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch
 
 from tpu_cfd_torch import boundaries, grids
 from tpu_cfd_torch.ops import fast_diagonalization, finite_differences as fdm
+from tpu_cfd_torch.ops.cuda import fvm_projection
 
 Tensor = torch.Tensor
 Grid = grids.Grid
@@ -76,7 +87,10 @@ class PressureProjection:
 
     The divergence is the rhs; all-Neumann axes take its mean out; the
     Laplacian's pseudoinverse gives the pressure, whose BCs are imposed; its
-    forward-difference gradient is subtracted from the velocity.
+    forward-difference gradient is subtracted from the velocity. Where
+    ``_kernel_fits`` holds, the divergence and the subtraction are
+    ``ops/cuda/fvm_projection.py``'s (one kernel launch each on the card)
+    around the same solve.
     """
 
     grid: Grid
@@ -88,8 +102,20 @@ class PressureProjection:
         self.solver = Pseudoinverse(grid=self.grid, bc=self.bc, dtype=self.dtype,
                                     hermitian=True, implementation=self.implementation)
 
+    def _kernel_fits(self, v: GridVariableVector) -> bool:
+        """Whether the divergence and the subtraction take
+        ``ops/cuda/fvm_projection.py``: fields that ``fits_mac_kernels``, a
+        pressure periodic on both axes whose solve is the ``rfft`` pair (an
+        even n1), in the fields' dtype."""
+        return (fvm_projection.fits_mac_kernels(v) and self.solver.implementation == "rfft"
+                and self.dtype == v[0].dtype
+                and all(boundaries.is_bc_periodic_boundary_conditions(self.bc, axis)
+                        for axis in range(self.grid.ndim)))
+
     def __call__(self, v: GridVariableVector) -> GridVariableVector:
         grids.consistent_grid(self.grid, *v)
+        if self._kernel_fits(v):
+            return self._project_on_kernels(v)
         pressure_bc = boundaries.get_pressure_bc_from_velocity(v)
         rhs = fdm.divergence(v)
         rhs_inv = self.solver(rhs_transform(rhs, pressure_bc))
@@ -98,6 +124,14 @@ class PressureProjection:
         return GridVariableVector(
             tuple(u.bc.impose_bc(u.array - q_g) for u, q_g in zip(v, q_grad))
         )
+
+    def _project_on_kernels(self, v: GridVariableVector) -> GridVariableVector:
+        u, w = (c.data.contiguous() for c in v)
+        step = self.grid.step
+        q = self.solver(fvm_projection.divergence(u, w, step))
+        out = fvm_projection.subtract_gradient(u, w, q.contiguous(), step)
+        return GridVariableVector(tuple(
+            GridVariable(GridArray(d, c.offset, c.grid), c.bc) for d, c in zip(out, v)))
 
 
 def rhs_transform(u: GridArray, bc) -> Tensor:
