@@ -223,18 +223,21 @@ class RKStepper:
 def _combination(u0: GridVariableVector, terms) -> GridVariableVector:
     """``u0 + c1 k1 + c2 k2 + ...`` over ``terms`` ``(c, k)``, summed in
     order: ``ops/cuda/fvm_projection.py``'s ``combine`` (one launch on the
-    card) where the fields ``fits_mac_kernels``, else term by term."""
-    ks = [kj for _, kj in terms]
-    if 0 < len(terms) <= fvm_projection.MAX_TERMS and fvm_projection.fits_mac_kernels(u0, *ks):
-        out = fvm_projection.combine(
-            tuple(c.data.contiguous() for c in u0),
-            [(coef, tuple(c.data.contiguous() for c in kj)) for coef, kj in terms])
-        return GridVariableVector(tuple(
-            GridVariable(GridArray(d, c.offset, c.grid), c.bc) for d, c in zip(out, u0)))
-    u_star = u0
-    for coef, kj in terms:
-        u_star = u_star + coef * kj
-    return u_star
+    card) where the fields ``fits_mac_kernels``, else term by term. One
+    ``solver.combine`` span covers it."""
+    with trace_annotation("solver.combine"):
+        ks = [kj for _, kj in terms]
+        if (0 < len(terms) <= fvm_projection.MAX_TERMS
+                and fvm_projection.fits_mac_kernels(u0, *ks)):
+            out = fvm_projection.combine(
+                tuple(c.data.contiguous() for c in u0),
+                [(coef, tuple(c.data.contiguous() for c in kj)) for coef, kj in terms])
+            return GridVariableVector(tuple(
+                GridVariable(GridArray(d, c.offset, c.grid), c.bc) for d, c in zip(out, u0)))
+        u_star = u0
+        for coef, kj in terms:
+            u_star = u_star + coef * kj
+        return u_star
 
 
 @dataclasses.dataclass
@@ -249,8 +252,13 @@ class NavierStokes2DFVMProjection(ProjectionExplicitODE):
     and device, since its mesh is built on the host.
 
     Spans (``utils.trace_annotation``): ``solver.forward`` around a step,
-    ``solver.explicit`` around each evaluation of the explicit terms and
-    ``solver.projection`` around each projection.
+    ``solver.explicit`` around each evaluation of the explicit terms,
+    ``solver.combine`` around each RK combination (``_combination``),
+    ``solver.projection`` around each projection and, inside it,
+    ``solver.poisson`` around its pressure solve. A classic RK4 step logs 17:
+    one ``solver.forward`` holding four each of ``solver.explicit``,
+    ``solver.combine`` and ``solver.projection``, and one ``solver.poisson``
+    in each projection.
 
     Route: where ``_kernel_takes`` holds (CUDA fields and ``_kernel_fits``), an
     evaluation of the explicit terms is one launch of

@@ -16,7 +16,8 @@ the unchanged solve: one kernel launch each on the card, their plain
 versions, bit for bit the stencils of ``ops/finite_differences.py``, on the
 CPU. Under periodic BCs imposing them leaves every value as it is, so this
 route skips it. Every other projection runs those stencils and imposes the
-BCs.
+BCs. On either route a ``solver.poisson`` span (``utils.trace_annotation``)
+covers the pressure solve.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from tpu_cfd_torch import boundaries, grids
 from tpu_cfd_torch.ops import fast_diagonalization, finite_differences as fdm
 from tpu_cfd_torch.ops.cuda import fvm_projection
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Tensor = torch.Tensor
 Grid = grids.Grid
@@ -90,7 +92,8 @@ class PressureProjection:
     forward-difference gradient is subtracted from the velocity. Where
     ``_kernel_fits`` holds, the divergence and the subtraction are
     ``ops/cuda/fvm_projection.py``'s (one kernel launch each on the card)
-    around the same solve.
+    around the same solve. A ``solver.poisson`` span covers the solve (and,
+    on the stencils' route, the rhs's mean removal).
     """
 
     grid: Grid
@@ -118,7 +121,8 @@ class PressureProjection:
             return self._project_on_kernels(v)
         pressure_bc = boundaries.get_pressure_bc_from_velocity(v)
         rhs = fdm.divergence(v)
-        rhs_inv = self.solver(rhs_transform(rhs, pressure_bc))
+        with trace_annotation("solver.poisson"):
+            rhs_inv = self.solver(rhs_transform(rhs, pressure_bc))
         q = pressure_bc.impose_bc(GridArray(rhs_inv, rhs.offset, rhs.grid))
         q_grad = fdm.forward_difference(q)
         return GridVariableVector(
@@ -128,7 +132,9 @@ class PressureProjection:
     def _project_on_kernels(self, v: GridVariableVector) -> GridVariableVector:
         u, w = (c.data.contiguous() for c in v)
         step = self.grid.step
-        q = self.solver(fvm_projection.divergence(u, w, step))
+        rhs = fvm_projection.divergence(u, w, step)
+        with trace_annotation("solver.poisson"):
+            q = self.solver(rhs)
         out = fvm_projection.subtract_gradient(u, w, q.contiguous(), step)
         return GridVariableVector(tuple(
             GridVariable(GridArray(d, c.offset, c.grid), c.bc) for d, c in zip(out, v)))

@@ -15,7 +15,10 @@ from tpu_cfd_torch.utils.tools import (
     timer,
 )
 from tpu_cfd_torch.utils.profiling import (
+    clear_span_log,
     device_memory_summary,
     profile_to,
+    span_log,
+    spans_dropped,
     trace_annotation,
 )
