@@ -6,7 +6,7 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero,
 printing no result, when either is missing or any phase fails:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the five CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
+2. builds the seven CUDA sources of ``tpu_cfd_torch/ops/cuda/csrc`` with one
    ``nvcc`` each, all at once;
 3. holds each spectral-step kernel, and the whole fused rollout in both
    layouts, against its plain PyTorch version on the same CUDA tensors at
@@ -84,9 +84,15 @@ printing no result, when either is missing or any phase fails:
    samples, 100 warmup + 291 recorded steps (30 records; depth cut from
    3·10⁴ + 2·10⁴ steps and 1,280 samples), once plainly and once with
    ``--replicable-init`` (the GRF's noise drawn at 2048² on the card),
-   checks the datasets and that no spectral-step kernel launched, and times
-   the IMEX-2 rollout at b=8 and the full dataset's b=64 for the dataset's
-   cost (median of five calls, range);
+   checks the datasets, that no spectral-step kernel launched and that the
+   IMEX-spectral kernels (``ops/cuda/imex_spectral.py``) launched two of each
+   a step, and times the IMEX-2 rollout at b=8 and the full dataset's b=64
+   for the dataset's cost (median of five calls, range); then at the
+   benchmark's b=256 (``imex_kernel_phase``), fp32 and fp64, each
+   IMEX-spectral kernel's device time beside its bytes bound and its plain
+   version's time, each equal to its plain version bit for bit, and one step
+   on the kernels equal to the composed path's, its launches by count and
+   both routes' ms, busy ms and device operations a step;
 12. drives the seventh main path, ``python -m
    tpu_cfd_torch.examples.ex2_sfno_finetune --example McWilliams2d
    --gt-floor --lr-decay 0.05`` at 256² in fp64 with eval modes (64, 64, 6)
@@ -178,7 +184,10 @@ printing no result, when either is missing or any phase fails:
    on it and ``ex2_sfno_finetune --example fno``, 10 iterations; the DFT
    pair (800 planes at m=12) and the FFN (163,840 rows, 20 → 80 → 20 GELU,
    also held against its plain version and timed in phases 5 and 7) by
-   exact count, and no kernel in the datasets, the eval or the fine-tune.
+   exact count, and no SFNO or spectral-step kernel in the datasets, the eval
+   or the fine-tune; the IMEX-spectral kernels by exact count in both
+   datasets (two of each a step, and one evaluation for each recorded
+   chunk's residual) and none elsewhere.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -246,6 +255,8 @@ FVM_DEVICE_TOL = 1e-10
 # against the plain evaluation: the same operations, fused multiply-adds
 # and reciprocals aside (tests/test_torch_fvm_explicit_kernel.py)
 FVM_BATCH, FVM_KERNEL_TOL = 512, 1e-12
+# the FNO dataset's IMEX-2 step at the benchmark's batch (fno_forced256.gen_b256)
+IMEX_BATCH = 256
 
 
 def _require(ok: bool, what: str) -> None:
@@ -399,7 +410,10 @@ def step_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the program's spans show on the device's timeline as user annotations,
+    # over the kernels they cover: not device operations
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     collective = ("nccl", "c10d", "all_gather", "all_reduce", "allreduce", "allgather",
@@ -783,6 +797,117 @@ def tensor_parallel_phase(dev) -> dict:
     return {"row": row, "launches": launches}
 
 
+def imex_launches(batches: int, steps: int, chunks: int = 0) -> dict:
+    """Launches of ``ops/cuda/imex_spectral.py``'s kernels in ``batches``
+    batches of ``steps`` IMEX-2 steps: two of each kernel a step, and one
+    explicit evaluation (``spectra``, ``advect``, ``finish``) for the residual
+    of each of a batch's ``chunks`` recorded chunks."""
+    evaluations = batches * (2 * steps + chunks)
+    return {"spectra": evaluations, "advect": evaluations, "finish": evaluations,
+            "rk2_cn_stage": batches * 2 * steps}
+
+
+def imex_kernel_phase(dev, card: str) -> dict:
+    """The FNO dataset's IMEX-2 step at the benchmark's batch (256², b=256,
+    the SinCos forcing on the vorticity, the 2/3 rule) in fp32 and fp64: each
+    kernel of ``ops/cuda/imex_spectral.py`` by device time (the profiler)
+    beside its bytes bound and its plain version's time (the composed path's
+    torch operations, CUDA events), each required to equal its plain version
+    bit for bit; one step on the kernels against the composed path (equal bit
+    for bit, two launches of each kernel by count) and both routes' ms a step
+    (CUDA events) and device busy ms and operations a step (the profiler)."""
+    import torch
+
+    from tpu_cfd_torch import grids
+    from tpu_cfd_torch.ops.cuda import imex_spectral as im
+    from tpu_cfd_torch.solvers import forcings
+    from tpu_cfd_torch.solvers.equations import IMEXStepper, NavierStokes2DSpectral
+
+    grid = grids.Grid((N, N), domain=((0, 1.0), (0, 1.0)))
+    forcing = forcings.SinCosForcing(grid=grid, scale=0.1, diam=1.0, wave_number=1,
+                                     vorticity=True)
+
+    def solver(dtype):
+        return NavierStokes2DSpectral(viscosity=1e-3, grid=grid, fft_impl="fft",
+                                      solver=IMEXStepper(order=2), forcing_fn=forcing,
+                                      dtype=dtype, device=dev)
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).replace("torch.", "")
+        ns, composed = solver(dtype), solver(dtype)
+        composed._kernel_takes = lambda u: False
+        c = ns._kernel_constants()
+        gen = torch.Generator(device=dev).manual_seed(11)
+        w = torch.fft.rfft2(torch.randn((IMEX_BATCH, N, N), dtype=dtype, device=dev,
+                                        generator=gen))
+        spec_bytes = w.numel() * w.element_size()
+        phys_bytes = IMEX_BATCH * N * N * w.real.element_size()
+        planes = torch.fft.irfft2(im.spectra(w, c), s=grid.shape, norm="forward")
+        terms = torch.fft.rfft2(im.advect(planes, c))
+        h = im._finish_plain(terms, c)
+        f = ns.explicit_terms(w + 0.5 * h)
+        # each: the kernel's call, its plain version's, the bytes it moves
+        cases = {
+            "spectra": (lambda: im.spectra(w, c), lambda: im._spectra_plain(w, c),
+                        5 * spec_bytes),
+            "advect": (lambda: im.advect(planes, c), lambda: im._advect_plain(planes, c),
+                       5 * phys_bytes),
+            "finish": (lambda: im.finish(terms.clone(), c),
+                       lambda: im._finish_plain(terms, c), 2 * spec_bytes),
+            "rk2_cn_stage_1": (lambda: im.rk2_cn_stage(w, h, None, c, DT, 0.5, 0.5),
+                               lambda: im._rk2_cn_stage_plain(w, h, None, c, DT, 0.5, 0.5),
+                               3 * spec_bytes),
+            "rk2_cn_stage_2": (lambda: im.rk2_cn_stage(w, h, f, c, DT, 0.5, 0.5),
+                               lambda: im._rk2_cn_stage_plain(w, h, f, c, DT, 0.5, 0.5),
+                               4 * spec_bytes),
+        }
+        kernels = {}
+        for name, (fn, plain, nbytes) in cases.items():
+            equal = torch.equal(fn(), plain())
+            _require(equal, f"the {name} kernel vs its plain version, {tag}")
+            kernel = name.rsplit("_", 1)[0] if name.startswith("rk2") else name
+            inplace = (lambda: im.finish(terms, c)) if name == "finish" else fn
+            ms_ = device_ms(inplace, f"{kernel}_kernel")
+            plain_ms = cuda_ms(plain, 5)
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            kernels[name] = {"device_ms": ms_, "bound_ms": bound, "bytes": nbytes,
+                             "share_of_bound": None if ms_ is None else bound / ms_,
+                             "plain_ms": plain_ms, "equal": equal}
+            print(f"imex kernels: {name} at b={IMEX_BATCH}, {N}^2, {tag} on {card}: "
+                  f"{fmt_ms(ms_)} ms device, bound {bound:.4f} by bytes ({nbytes / 1e6:.1f} "
+                  f"MB), plain {plain_ms:.4f} ms, equal to plain {equal}", flush=True)
+        im.reset_launch_counts()
+        got = ns.solver(w, DT, ns)
+        launches = dict(im.LAUNCHES)
+        want = composed.solver(w, DT, composed)
+        _require(launches == imex_launches(1, 1) and im.LAUNCHES == launches,
+                 f"an IMEX-2 step launches two of each kernel, the composed path none: "
+                 f"{launches}, {im.LAUNCHES}")
+        _require(torch.equal(got, want), f"the IMEX-2 step on the kernels vs composed, {tag}")
+        step = {}
+        for route, eqn in (("composed", composed), ("kernels", ns), ("kernels", ns),
+                           ("composed", composed)):
+            step.setdefault(route, []).append(cuda_ms(lambda: eqn.solver(w, DT, eqn), 10))
+        prof = {route: step_profile(lambda: eqn.solver(w, DT, eqn))
+                for route, eqn in (("composed", composed), ("kernels", ns))}
+        rows[tag] = {"kernels": kernels, "step_ms": step, "launches_per_step": launches,
+                     "step_profile": {r: {k: p[k] for k in ("wall_ms", "device_busy_ms",
+                                                            "launches")}
+                                      for r, p in prof.items()}}
+        print(f"imex kernels: an IMEX-2 step at b={IMEX_BATCH}, {N}^2, {tag} on {card}, ms "
+              f"(CUDA events, composed / kernels / kernels / composed): "
+              f"{step['composed'][0]:.3f} / {step['kernels'][0]:.3f} / "
+              f"{step['kernels'][1]:.3f} / {step['composed'][1]:.3f}; device busy ms and "
+              f"operations a step: composed {prof['composed']['device_busy_ms']:.3f}, "
+              f"{prof['composed']['launches']}, kernels "
+              f"{prof['kernels']['device_busy_ms']:.3f}, {prof['kernels']['launches']}; "
+              f"launches {launches}", flush=True)
+        del ns, composed, w, planes, terms, h, f, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def fno_recipe_phase(dev, tmp, gen) -> dict:
     """18. Main path 12, the FNO recipe (``train/recipe_accuracy.py``'s FNO
     stages) through its CLIs at the recipe's widths with its depth cut: the
@@ -798,32 +923,38 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
     every kernel are held to exact counts: the FFN once a layer a forward
     and the DFT pair where ``fused_pair_wins`` names the 800 planes, in
     training and validation only (the datasets are IMEX order 2 on
-    ``torch.fft``; the eval and the fine-tune run in fp64). The path's
-    kernel instances are held against their plain versions. Returns the
-    phase's row and the path's launches."""
+    ``torch.fft``; the eval and the fine-tune run in fp64), and the
+    IMEX-spectral kernels in the datasets only (``imex_launches``). The
+    path's kernel instances are held against their plain versions. Returns
+    the phase's row and the path's launches."""
     import numpy as np
     import torch
 
     from tpu_cfd_torch.data import generate
     from tpu_cfd_torch.examples import ex2_sfno_finetune
     from tpu_cfd_torch.ops.cuda import adam as adam_ops, ffn as ffn_ops
+    from tpu_cfd_torch.ops.cuda import imex_spectral as im
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
     from tpu_cfd_torch.train import recipe_accuracy as ra, train
 
     counters = (ss, sc, ffn_ops, adam_ops)
+    imex = {}  # the IMEX-spectral kernels' launches by stage (their keys are their own)
 
-    def timed(fn):
+    def timed(fn, stage):
         take_counts(counters)
+        im.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        imex[stage] = dict(im.LAUNCHES)
         return out, time.perf_counter() - t0, take_counts(counters)
 
     fdir = os.path.join(tmp, "fno_recipe")
     row = {}
     data_path, row["dataset_s"], gen_launches = timed(lambda: generate.main_fno(ra.override(
         ra.FNO_GENERATE, {"--num-samples": "16", "--batch-size": "8", "--time": "0.4",
-                          "--time-warmup": "0.1", "--num-steps": "60", "--filepath": fdir})))
+                          "--time-warmup": "0.1", "--num-steps": "60", "--filepath": fdir})),
+        "dataset")
     with np.load(data_path) as z:
         shapes = {k: z[k].shape for k in ("vorticity", "stream", "vort_t", "residual")}
         finite = all(np.isfinite(z[k]).all() for k in shapes)
@@ -834,7 +965,7 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
 
     targv = ra.override(ra.FNO_TRAIN, {"--epochs": "2", "--num-samples": "8",
                                     "--num-val-samples": "4", "--train-file": data_path})
-    run, row["train_s"], train_launches = timed(lambda: train.main(targv))
+    run, row["train_s"], train_launches = timed(lambda: train.main(targv), "train")
     hist = run["history"]
     print(f"main path 12: train --example fno at the recipe's widths, {run['n_params']} "
           f"parameters, 2 epochs x 2 steps + 1 val batch in {row['train_s']:.2f} s, "
@@ -857,7 +988,7 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
                                        "--time": "0.26", "--time-warmup": "0.1",
                                        "--num-steps": "80", "--filepath": fdir})
     ft_path, row["fp64_test_set_s"], ft_data_launches = timed(
-        lambda: generate.main_fno(ftargv))
+        lambda: generate.main_fno(ftargv), "fp64 test set")
     with np.load(ft_path) as z:
         ft_shape, ft_dtype = z["vorticity"].shape, z["vorticity"].dtype
     _require(ft_shape == (2, 80, 256, 256) and ft_dtype == np.float64,
@@ -865,7 +996,7 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
     eargv = ra.override(ra.FNO_EVAL, {"--num-test-samples": "2", "--num-samples": "8",
                                    "--num-val-samples": "4", "--train-file": data_path,
                                    "--test-file": ft_path})
-    ev, row["eval_s"], eval_launches = timed(lambda: train.main(eargv))
+    ev, row["eval_s"], eval_launches = timed(lambda: train.main(eargv), "eval")
     row["eval_256_rel"] = ev["test"]
     print(f"main path 12: fp64 test set 256^2, 2 samples, 100 + 159 steps in "
           f"{row['fp64_test_set_s']:.2f} s; --eval-only --double at 256^2: rel Sobolev "
@@ -875,7 +1006,8 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
 
     fargv = ra.override(ra.FNO_FINETUNE, {"--iters": "10", "--test-file": ft_path,
                                        "--ckpt": run["checkpoint"]})
-    ft, row["finetune_s"], ft_launches = timed(lambda: ex2_sfno_finetune.main(fargv))
+    ft, row["finetune_s"], ft_launches = timed(lambda: ex2_sfno_finetune.main(fargv),
+                                               "fine-tune")
     res = [h["residual"] for h in ft["history"]]
     row.update(zero_shot_rel_l2=ft["zero_shot_rel_l2"], gt_floor=ft["gt_floor"],
                residuals=res, iter_seconds=ft["iter_seconds"])
@@ -890,9 +1022,19 @@ def fno_recipe_phase(dev, tmp, gen) -> dict:
     for tag, launched in (("dataset", gen_launches), ("fp64 test set", ft_data_launches),
                           ("eval", eval_launches), ("fine-tune", ft_launches)):
         _require(not any(launched.values()), f"the FNO recipe's {tag} launched {launched}")
+    # the datasets step IMEX-2 on torch.fft through the IMEX-spectral kernels:
+    # 2 batches of 100 + 1 + 59 x 5 steps and 1 of 100 + 1 + 79 x 2, each
+    # batch's records in one chunk, whose residual is one more evaluation
+    want_imex = {"dataset": imex_launches(2, 396, 1), "fp64 test set": imex_launches(1, 259, 1),
+                 "train": imex_launches(0, 0), "eval": imex_launches(0, 0),
+                 "fine-tune": imex_launches(0, 0)}
+    print(f"main path 12: IMEX-spectral launches {imex}", flush=True)
+    _require(imex == want_imex, f"the FNO recipe's IMEX-spectral launches {imex}, expected "
+             f"{want_imex}")
     row["kernel_vs_plain"] = hold_instances("FNO recipe", run["model"], [(b, n)], modes,
                                             width, latent, dev, gen)
-    row.update(launches=train_launches, expected_launches=want, fused_pair=fused_pair)
+    row.update(launches=train_launches, expected_launches=want, fused_pair=fused_pair,
+               imex_launches=imex)
     return {"row": row, "launches": train_launches}
 
 
@@ -914,6 +1056,7 @@ def main() -> int:
     from tpu_cfd_torch.ops.cuda import _build, adam as adam_ops, ffn as ffn_ops
     from tpu_cfd_torch.ops.cuda import fvm_explicit as fvm_ops
     from tpu_cfd_torch.ops.cuda import fvm_projection as proj_ops
+    from tpu_cfd_torch.ops.cuda import imex_spectral as imex_ops
     from tpu_cfd_torch.ops.cuda import spectral_conv as sc, spectral_step as ss
     from tpu_cfd_torch.ops.spectral import brick_wall_filter_2d
     from tpu_cfd_torch.solvers import forcings, initial_conditions as ic
@@ -930,11 +1073,12 @@ def main() -> int:
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
     sources = ("spectral_step", "spectral_conv", "ffn", "adam", "fvm_explicit",
-               "fvm_projection")
+               "fvm_projection", "imex_spectral")
     with ThreadPoolExecutor(len(sources)) as pool:
         for name, fut in [(s, pool.submit(_build.build, s, (), True)) for s in sources]:
             print(f"build: {name}.cu -> {fut.result().name}", flush=True)
     ss._lib(), sc._lib(), ffn_ops._lib(), adam_ops._lib(), fvm_ops._lib(), proj_ops._lib()
+    imex_ops._lib()
     print(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -1976,6 +2120,7 @@ def main() -> int:
                  "--dt", str(DT), "--num-steps", "30", "--filepath",
                  os.path.join(tmp, tag), *extra]
         ss.reset_launch_counts()
+        imex_ops.reset_launch_counts()
         t0 = time.perf_counter()
         fpath = generate.main_fno(fargv)
         torch.cuda.synchronize()
@@ -1987,18 +2132,23 @@ def main() -> int:
         fsteps = 2 * (100 + 1 + 29 * 10)
         fno_rows[tag] = dict(seconds=fwall, steps=fsteps,
                              sample_steps_per_s=8 * fsteps / fwall,
-                             launches=dict(ss.LAUNCHES))
+                             launches=dict(ss.LAUNCHES),
+                             imex_launches=dict(imex_ops.LAUNCHES))
         print(f"main path 6: fno {tag} 256^2->64^2, 16 samples b8, {fsteps} steps "
               f"in {fwall:.2f} s: {fno_rows[tag]['sample_steps_per_s']:.1f} "
               f"sample-steps/s with the IC and the recorder, fft_impl "
               f"{fmeta['fft_impl']}, records {fvort.shape}, spectral-step launches "
-              f"{fno_rows[tag]['launches']}", flush=True)
+              f"{fno_rows[tag]['launches']}, IMEX-spectral launches "
+              f"{fno_rows[tag]['imex_launches']}", flush=True)
         _require(fvort.shape == (16, 30, 64, 64), f"fno shape {fvort.shape}")
         _require(bool(np.isfinite(fvort).all()) and np.abs(fvort).max() > 0,
                  "finite, non-zero fno dataset")
         _require(fmeta["fft_impl"] == "fft", "the fno dataset takes torch.fft")
         _require(not any(fno_rows[tag]["launches"].values()),
                  "no spectral-step kernel on the IMEX order-2 path")
+        _require(fno_rows[tag]["imex_launches"] == imex_launches(1, fsteps),
+                 f"the IMEX-spectral kernels step the fno dataset, two of each a step: "
+                 f"{fno_rows[tag]['imex_launches']}")
     fgrid = grids.Grid((N, N), domain=((0, 1.0), (0, 1.0)))
     fno_ns = NavierStokes2DSpectral(
         viscosity=1e-3, grid=fgrid, fft_impl="fft", solver=IMEXStepper(order=2),
@@ -2013,6 +2163,7 @@ def main() -> int:
           + "; the full fno dataset (1,280 samples x 5e4 steps) would take "
           + ", ".join(f"{h['median']:.2f} h ({h['max']:.2f}-{h['min']:.2f}) at b{b}"
                       for b, h in full_h.items()), flush=True)
+    imex_rows = imex_kernel_phase(dev, card)
     # -- 12. main path 7: the fine-tune example at 256^2 in fp64 --------------
     from tpu_cfd_torch.data.datasets import SpatioTemporalDataset
     from tpu_cfd_torch.examples import ex2_sfno_finetune, ex2_train_and_finetune
@@ -2780,7 +2931,7 @@ def main() -> int:
                                     "ic_max_div": div, "ic_vmax_rel_err": vmax_err,
                                     "rollout_rel_l2_vs_plain": kol_err},
                      "fno": {**fno_rows, "rollout_sample_steps_per_s": fno_rollout,
-                             "full_dataset_hours": full_h}},
+                             "full_dataset_hours": full_h, "imex_kernels": imex_rows}},
         "finetune_main_path_7": ft_row, "demo_main_path_8": demo_row, "fvm_phase_13": fvm_rows,
         "data_parallel_main_path_9": dp_rows, "examples_main_path_10": ex_rows,
         "utilities_phase_16": util_row, "tensor_parallel_main_path_11": p17["row"],

@@ -1,4 +1,4 @@
-"""The SFNO, spectral-step and Adam kernels on the card against their plain versions.
+"""The SFNO, spectral-step, Adam and IMEX-2 kernels on the card against their plain versions.
 
 Imports only torch and the port, so it runs where JAX is not installed:
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py`` on a machine
@@ -8,7 +8,8 @@ another order); gradients of the whole SFNO within 1e-4 of each leaf's; the
 FFN with bfloat16 rows within one bfloat16 spacing (2^-7) of the largest
 entry, as kernel and plain version each round a float32 sum once; ``adam_step``
 and the multi-tensor ``adam_step_leaves`` within 1e-6 of the largest entry of
-each of p, m, v over three steps.
+each of p, m, v over three steps. The IMEX-2 step's kernels
+(``imex_spectral``) equal the composed path bit for bit.
 """
 
 import contextlib
@@ -22,8 +23,10 @@ from tpu_cfd_torch import models as tm
 from tpu_cfd_torch.models.fused_conv import _dft2d_constants, make_dft2d_ops
 from tpu_cfd_torch.ops.cuda import adam as tadam
 from tpu_cfd_torch.ops.cuda import ffn as tffn
+from tpu_cfd_torch.ops.cuda import imex_spectral as im
 from tpu_cfd_torch.ops.cuda import spectral_conv as sc
 from tpu_cfd_torch.ops.cuda import spectral_step as ss
+from tpu_cfd_torch.solvers import equations as teq, forcings as tforcings
 
 pytestmark = pytest.mark.cuda
 
@@ -508,3 +511,96 @@ def test_tensor_parallel_fno3d_at_world_1_on_nccl(dev, tmp_path):
             torch.testing.assert_close(got[k], p.detach(), rtol=1e-5, atol=1e-6, msg=k)
     finally:
         dist.destroy_process_group()
+
+
+# -- the IMEX-2 step's kernels (ops/cuda/imex_spectral.py) ------------------
+# Kernel and composed path compute the same IEEE operations in the same order
+# (the .cu header), so they are held equal bit for bit, signs of zeros too.
+
+def _imex_solver(dev, dtype, n=256, **kw):
+    """The FNO dataset's solver: forced on the vorticity, the 2/3 rule, IMEX-2."""
+    grid = grids.Grid((n, n), domain=((0, 1.0), (0, 1.0)))
+    forcing = tforcings.SinCosForcing(grid=grid, scale=0.1, diam=1.0, wave_number=1,
+                                      vorticity=True)
+    kw.setdefault("fft_impl", "fft")
+    return teq.NavierStokes2DSpectral(viscosity=1e-3, grid=grid, smooth=True,
+                                      forcing_fn=forcing, solver=teq.IMEXStepper(order=2),
+                                      dtype=dtype, device=dev, **kw)
+
+
+def _imex_state(dev, dtype, lead, n=256, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.fft.rfft2(torch.randn((*lead, n, n), dtype=dtype, device=dev, generator=gen))
+
+
+def _bitwise_equal(got, want) -> bool:
+    def bits(t):
+        t = torch.view_as_real(t) if t.is_complex() else t
+        return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+    return got.shape == want.shape and torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("lead", [(4,), (2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_imex_spectral_explicit_terms_equal_composed(dev, dtype, lead):
+    ns = _imex_solver(dev, dtype)
+    w = _imex_state(dev, dtype, lead)
+    im.reset_launch_counts()
+    got = ns.explicit_terms(w)
+    assert im.LAUNCHES == {"spectra": 1, "advect": 1, "finish": 1, "rk2_cn_stage": 0}
+    want = ns._explicit_terms(w)
+    assert torch.equal(got, want), _rel_err(got, want)
+    assert _bitwise_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_imex_spectral_step_equals_composed(dev, dtype):
+    """One IMEX-2 step at 256², b=4 on the kernels against the composed path,
+    and its launches: two of each kernel."""
+    ns = _imex_solver(dev, dtype)
+    w = _imex_state(dev, dtype, (4,), seed=6)
+    im.reset_launch_counts()
+    got = ns.solver(w, 1e-3, ns)
+    assert im.LAUNCHES == {"spectra": 2, "advect": 2, "finish": 2, "rk2_cn_stage": 2}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ns, "_kernel_takes", lambda u: False)
+        want = ns.solver(w, 1e-3, ns)
+    assert im.LAUNCHES["spectra"] == 2  # the composed path launches none
+    assert torch.equal(got, want), _rel_err(got, want)
+    assert _bitwise_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_imex_spectral_kernels_equal_plain(dev, dtype):
+    """Each kernel against its plain version on the same CUDA tensors."""
+    ns = _imex_solver(dev, dtype)
+    c = ns._kernel_constants()
+    w = _imex_state(dev, dtype, (3,), seed=7)
+    specs = im.spectra(w, c)
+    assert _bitwise_equal(specs, im._spectra_plain(w, c))
+    planes = torch.fft.irfft2(specs, s=ns.grid.shape, norm="forward")
+    adv = im.advect(planes, c)
+    assert _bitwise_equal(adv, im._advect_plain(planes, c))
+    terms = torch.fft.rfft2(adv)
+    want = im._finish_plain(terms, c)
+    assert _bitwise_equal(im.finish(terms, c), want)
+    h, f = want, ns._explicit_terms(2 * w)
+    for second in (None, f):
+        assert _bitwise_equal(im.rk2_cn_stage(w, h, second, c, 1e-3, 0.5, 0.5),
+                              im._rk2_cn_stage_plain(w, h, second, c, 1e-3, 0.5, 0.5))
+
+
+def test_imex_spectral_other_routes_launch_none(dev):
+    """The matmul layouts, a gradient and a complex128 spectrum in an fp32
+    solver take the composed path on the card."""
+    im.reset_launch_counts()
+    for fft_impl in ("dft", "dft_aligned", "dft_galerkin"):
+        ns = _imex_solver(dev, torch.float32, n=64, fft_impl=fft_impl)
+        ns.forward(_imex_state(dev, torch.float32, (2,), n=64), 1e-3, steps=2)
+    ns = _imex_solver(dev, torch.float32, n=64)
+    w = _imex_state(dev, torch.float32, (2,), n=64).requires_grad_(True)
+    ns.explicit_terms(w).abs().sum().backward()
+    assert w.grad is not None
+    ns.explicit_terms(_imex_state(dev, torch.float64, (2,), n=64))
+    assert not any(im.LAUNCHES.values()), im.LAUNCHES

@@ -13,7 +13,9 @@ The port's counterpart of what XLA does for ``jnp.fft`` on an array that
 - ``rfft2``: the same in reverse;
 - every precomputed spectral array (wavenumbers, Laplacian, dealiasing
   filter, a forcing's spectrum) sliced to the rank's rows; the stream
-  function's guard at the zero mode lies on the first rank's first row.
+  function's guard at the zero mode lies on the first rank's first row;
+- the composed explicit terms and IMEX update: the IMEX-spectral kernels
+  (``ops/cuda/imex_spectral.py``) take whole spectra.
 
 Complex tensors cross the all-to-all as real pairs. Only ``fft_impl="fft"``
 takes a pencil field: the matmul layouts and the fused CUDA rollout work on
@@ -96,6 +98,11 @@ class PencilEquation(NavierStokes2DSpectral):
         self.laplace, self.linear_term = ns.laplace[rows], ns.linear_term[rows]
         self.filter = None if ns.filter is None else ns.filter[rows]
         self._forcing_hat = ns._forcing_term()[rows] if ns.forcing_fn is not None else None
+
+    def _kernel_takes(self, w: Tensor) -> bool:
+        """A row slab steps on the composed path: the IMEX-spectral kernels
+        take whole spectra."""
+        return False
 
     def _stream(self, w: Tensor) -> Tensor:
         return -w / self.laplace_guarded

@@ -22,6 +22,7 @@ import torch
 from tpu_cfd_torch import grids
 from tpu_cfd_torch.device import resolve_device
 from tpu_cfd_torch.ops import dft2d
+from tpu_cfd_torch.ops.cuda import imex_spectral
 from tpu_cfd_torch.ops.spectral import (
     brick_wall_filter_2d,
     brick_wall_mask_2d,
@@ -72,6 +73,11 @@ class ImplicitExplicitODE:
         """PDE residual u_t - N(u) - L(u)."""
         return u_t - self.explicit_terms(u) - self.implicit_terms(u)
 
+    def _kernel_takes(self, u: Tensor) -> bool:
+        """Whether the IMEX-spectral kernels (``ops/cuda/imex_spectral.py``)
+        step ``u``: an equation that has none says no."""
+        return False
+
 
 @dataclasses.dataclass
 class IMEXStepper:
@@ -81,7 +87,10 @@ class IMEXStepper:
     IMEX (alpha=0.5); order=2: RK2 Crank-Nicolson (Chandler & Kerswell 2013).
     Spans (``utils.trace_annotation``): ``solver.explicit`` around each
     evaluation of the explicit terms, ``solver.implicit`` around each
-    implicit solve.
+    implicit solve. Order 2 forms each stage in one ``rk2_cn_stage`` launch
+    (``ops/cuda/imex_spectral.py``) where the equation's ``_kernel_takes``
+    holds, inside the ``solver.implicit`` span; orders 1 and 1.5 keep their
+    composed update.
     """
 
     order: float = 2
@@ -109,6 +118,16 @@ class IMEXStepper:
                             equation: ImplicitExplicitODE) -> Tensor:
         alpha, beta = self.alpha, self.beta
         F = equation.explicit_terms
+        if equation._kernel_takes(u):
+            c = equation._kernel_constants()
+            with trace_annotation("solver.explicit"):
+                h = F(u)
+            with trace_annotation("solver.implicit"):
+                u1 = imex_spectral.rk2_cn_stage(u, h, None, c, dt, alpha, beta)
+            with trace_annotation("solver.explicit"):
+                f = F(u1)
+            with trace_annotation("solver.implicit"):
+                return imex_spectral.rk2_cn_stage(u, h, f, c, dt, alpha, beta)
         G = equation.implicit_terms
         G_inv = equation.implicit_solve
         g = u + beta * dt * G(u)
@@ -209,6 +228,12 @@ def recommended_fft_impl(
     5.2425 ms there). ``batch_size`` is not consulted: the kernel won at
     every batch measured. The sweep lists the points where this answer is
     more than 5 % slower than the fastest; re-run it after a kernel change.
+    With ``torch.fft``'s explicit terms on the IMEX-spectral kernels, one
+    sweep (same card and limit) read 0.2474 ms a step at 256², b=32 against
+    1.1725 for ``torch.fft`` and 4.2405 for ``dft_galerkin``: the same
+    answer everywhere but 64², b=32, where the aligned layout's kernel read
+    8 % faster (0.1065 against 0.1154 ms, a host-paced point that the
+    Galerkin kernel wins at b=8 and b=128).
     """
     from tpu_cfd_torch.ops.cuda import spectral_step
 
@@ -331,6 +356,7 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
         else:
             self.filter = brick_wall_filter_2d(
                 self.grid, dtype=self.dtype, device=self.device)[..., : self._m]
+        self._imex_constants = None
 
     def _stream(self, vort_hat: Tensor) -> Tensor:
         """The stream function ψ̂ = -ŵ/Δ̂, the zero mode guarded."""
@@ -370,7 +396,55 @@ class NavierStokes2DSpectral(ImplicitExplicitODE):
                     self.forcing_fn(self.grid, None, **kw).data.to(self.dtype))
         return self._forcing_hat
 
+    def _kernel_takes(self, vort_hat: Tensor) -> bool:
+        """The route rule of the IMEX-spectral kernels
+        (``ops/cuda/imex_spectral.py``), for ``explicit_terms`` and for
+        ``IMEXStepper``'s order-2 update alike: ``fft_impl="fft"`` and a plain
+        tensor of the solver's device and complex dtype, contiguous, of the
+        half-spectrum's shape ``(..., n, n//2+1)``, that needs no gradient. The
+        wrappers launch on the card and run their plain versions (the same
+        torch operations) on the CPU; every other spectrum, and every other
+        transform, takes the composed path."""
+        complex_dtype = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+        return (self.fft_impl == "fft"
+                and type(vort_hat) is torch.Tensor
+                and vort_hat.dtype == complex_dtype.get(self.dtype)
+                and vort_hat.device == self.kx.device
+                and vort_hat.dim() >= 2
+                and vort_hat.shape[-2:] == self.kx.shape
+                and vort_hat.is_contiguous()
+                and not (torch.is_grad_enabled() and vort_hat.requires_grad))
+
+    def _kernel_constants(self) -> imex_spectral.Constants:
+        """The kernels' per-mode constants, built once at first use by the
+        composed path's own expressions, so to the same bits: the symbols
+        2πi k, the guarded Laplacian, the linear term, the filter and the
+        forcing's spectrum."""
+        if self._imex_constants is None:
+            self._imex_constants = imex_spectral.constants(
+                (2j * math.pi * self.kx).contiguous(), (2j * math.pi * self.ky).contiguous(),
+                spectral_laplacian_2d((self.kx, self.ky)).contiguous(),
+                self.linear_term.contiguous(),
+                self.filter.contiguous() if self.smooth else None,
+                self._forcing_term().contiguous() if self.forcing_fn is not None else None,
+                self.grid.shape)
+        return self._imex_constants
+
+    def _explicit_terms_kernels(self, vort_hat: Tensor) -> Tensor:
+        """``_explicit_terms`` on the IMEX-spectral kernels around the
+        ``torch.fft`` pair: the four spectra in one buffer, the inverse
+        transform unnormalised (``advect`` applies its scale), the
+        advection product, the forward transform, the 2/3 rule and the
+        forcing."""
+        c = self._kernel_constants()
+        specs = imex_spectral.spectra(vort_hat, c)
+        planes = torch.fft.irfft2(specs, s=self.grid.shape, norm="forward")
+        terms = torch.fft.rfft2(imex_spectral.advect(planes, c))
+        return imex_spectral.finish(terms, c)
+
     def explicit_terms(self, vort_hat: Tensor) -> Tensor:
+        if self._kernel_takes(vort_hat):
+            return self._explicit_terms_kernels(vort_hat)
         shape_in = tuple(vort_hat.shape[-2:])
         return self._unalign(self._explicit_terms(self._align(vort_hat)), shape_in)
 
