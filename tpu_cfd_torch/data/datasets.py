@@ -299,18 +299,20 @@ class SpatioTemporalDatasetFixedTime(SpatioTemporalDataset):
 class NavierStokesDataset:
     """FNO-paper-format dataset: one tensor ``u`` shaped (N, n, n, T).
 
-    Loads .mat/.pt/.npz, takes the first ``time_steps_input`` frames as
-    input channels and the following ``time_steps_output`` frames as
-    targets, with optional subsampling and Gaussian normalization of the
-    input.
+    Loads .mat/.pt/.npz (or takes the ``(N, n, n, T)`` array itself in
+    place of a path), takes the first ``time_steps_input`` frames as input
+    channels and the following ``time_steps_output`` frames as targets, with
+    optional subsampling and Gaussian normalization of the input.
     """
 
-    def __init__(self, data_path: Union[str, os.PathLike], n_samples: int = 1024,
+    def __init__(self, data_path: Union[str, os.PathLike, Array], n_samples: int = 1024,
                  train: bool = True, time_steps_input: int = 10,
                  time_steps_output: int = 40, subsample: int = 1,
                  field: str = "u", normalize: bool = True, dtype=np.float32):
-        data = load_trajectory_dict(data_path)
-        u = np.asarray(data[field])
+        if isinstance(data_path, (str, os.PathLike)):
+            u = np.asarray(load_trajectory_dict(data_path)[field])
+        else:
+            u = np.asarray(data_path)
         s = subsample
         u = u[:, ::s, ::s, :]
         n_samples = min(n_samples, u.shape[0])

@@ -8,10 +8,18 @@ lies on this model's path, as none does in the JAX package: ``MLP3d`` is two
 ``nn.Linear`` and ``SpectralConv3d`` is ``torch.fft.rfftn`` → corner blocks →
 ``irfftn`` (``SpectralConv.forward``). Module attributes follow
 ``tpu_cfd_torch.convert``, which maps them to the flax names.
+
+Spans (``utils.trace_annotation``): in ``FNO3d.forward``, ``fno3d.conv``
+around each spectral conv (``rfftn``, the corner blocks, ``irfftn``),
+``fno3d.mlp`` around each block's ``MLP3d`` and ``fno3d.head`` around the
+projection. ``COUNTS`` counts the forwards, the spectral conv calls and the
+points they transform (b·x·y·t of each conv's input, summed);
+``reset_counts`` sets them to zero.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,8 +33,16 @@ from tpu_cfd_torch.models.base import (
     remat_block,
     view_as_complex,
 )
+from tpu_cfd_torch.utils.profiling import trace_annotation
 
 Tensor = torch.Tensor
+
+COUNTS = {"forwards": 0, "conv_calls": 0, "conv_points": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _gelu(x: Tensor) -> Tensor:
@@ -101,6 +117,7 @@ class FNO3d(nn.Module):
 
     def forward(self, x: Tensor) -> Tuple[Tensor, None]:
         in_dtype = x.dtype
+        COUNTS["forwards"] += 1
         x = dense(self.lift, x, self.dtype)
         p = self.padding
         if p != 0:
@@ -108,13 +125,19 @@ class FNO3d(nn.Module):
             x = torch.cat([x[:, :, -p:], x, x[:, :, :p]], dim=2)
         last = len(self.convs) - 1
         for i, (conv, mlp, skip) in enumerate(zip(self.convs, self.mlps, self.skips)):
-            x1 = remat_block(mlp, remat_block(conv, x, self.remat), self.remat)
+            COUNTS["conv_calls"] += 1
+            COUNTS["conv_points"] += math.prod(x.shape[:4])
+            with trace_annotation("fno3d.conv"):
+                x1 = remat_block(conv, x, self.remat)
+            with trace_annotation("fno3d.mlp"):
+                x1 = remat_block(mlp, x1, self.remat)
             x = x1 + dense(skip, x, self.dtype)
             if i < last or self.last_activation:
                 x = _gelu(x)
         if p != 0:
             x = x[:, p:-p, p:-p, :, :]
-        return self.head(x.to(in_dtype))[..., 0], None
+        with trace_annotation("fno3d.head"):
+            return self.head(x.to(in_dtype))[..., 0], None
 
 
 def add_grid_3d(x: Tensor) -> Tensor:
